@@ -1,18 +1,17 @@
-"""Double-precision results from a TPU with no f64 unit.
+"""Double-precision results from single-precision device products.
 
-Two layered techniques (round 2):
+Two layered techniques:
 
 1. ``packed_matmul_exact`` / ``dgemm(precision='f64')`` — the RHS expands
-   in base-2^7 int8 digits; each digit slice is one EXACT int8 MXU pass
+   in base-2^7 int8 digits; each digit slice is one EXACT int8 product
    (int32 accumulation, zero rounding) and the partials recombine in host
-   float64.  Total error ~1e-15 relative: true double precision at ~4
-   bf16-pass cost, vs the ~50x slowdown of an emulated-f64 SIMT path.
+   float64.  Total error ~1e-15 relative: true double precision.
    (Reference counterpart: the double / long-double accumulators of
    Vector.matrix.D.cc:42-229 and the CUTLASS f64 path of
    dgemm_compressed_cuda.h:111-698.)
 
 2. ``solve.grm_cg_solve_refined`` — iterative refinement: the inner CG
-   runs entirely on device in fast-f32 (bf16-split MXU, ~1e-5 per solve),
+   runs entirely on device in fast-f32 (bf16-split, ~1e-5 per solve),
    the outer loop computes TRUE float64 residuals through the exact
    operator and re-solves for the correction.  Each pass multiplies the
    error by the inner accuracy, so 2-3 passes reach ~1e-12 — the accuracy

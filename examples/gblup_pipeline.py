@@ -1,6 +1,6 @@
 """GBLUP end to end: simulate -> ingest -> GRM-PCA -> BLUE/BLUP.
 
-The TPU rebuild of the reference's examples/gblup/calculate_gblup.jl
+The rebuild of the reference's examples/gblup/calculate_gblup.jl
 (simulate_population.R provides phenotypes there; here simulate_phenotypes).
 
     python examples/gblup_pipeline.py [--snps 50000] [--indiv 10000]

@@ -1,5 +1,5 @@
 """Conjugate-gradient solve on the GRM using only dgemm_compressed —
-the TPU rebuild of the reference's examples/iterative_solver/
+the rebuild of the reference's examples/iterative_solver/
 grm_solve_cg.jl, with the loop fully on-device (their stated wish:
 "A further boost ... if the whole PCG is transferred to the GPU",
 src/cuda/dgemm_compressed_cuda.cu:251-253).

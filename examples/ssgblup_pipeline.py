@@ -1,7 +1,7 @@
 """Single-step GBLUP end to end: pedigree + partial genotyping + phenotypes
 on a subset — the evaluation MiXBLUP runs with the reference's sparse-solve
 and packed-GEMM engines (solve_cuda.cu / mod5codesapi.f90), composed here
-into one matrix-free TPU solve.
+into one matrix-free device solve.
 
 Run from the repo root:  python examples/ssgblup_pipeline.py
 """

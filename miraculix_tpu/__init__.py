@@ -1,11 +1,11 @@
-"""miraculix_tpu — TPU-native genotype linear algebra.
+"""miraculix_tpu — genotype linear algebra on packed genotypes.
 
 A from-scratch JAX/Pallas framework with the capabilities of
 alexfreudenberg/miraculix: linear algebra directly on 2-bit-compressed
 genotype matrices — dgemm_compressed ('n'/'t' with allele-frequency
-centering), GRM/LD crossproducts, and GBLUP equation solving — built for
-TPU: planar16 packing decoded in-register inside Pallas kernels feeding the
-MXU, sharded across device meshes with XLA collectives.
+centering), GRM/LD crossproducts, and GBLUP equation solving — on the GPU:
+planar16 packing decoded in registers inside a Triton kernel feeding the
+tensor cores, sharded across device meshes with XLA collectives.
 """
 # NB: the gblup ESTIMATOR stays at miraculix_tpu.gblup.gblup — re-exporting
 # the function here would shadow the submodule of the same name

@@ -37,17 +37,15 @@ def set_options(
 ) -> None:
     """``setOptions_compressed`` parity (5codesAPI.c:43-70).
 
-    ``use_gpu`` maps to "use the accelerator (TPU)".  ``floatLoop`` (0 ==
+    ``use_gpu`` is accepted for parity, like ``cores``, and ignored:
+    kernels run on whatever backend jax selected.  ``floatLoop`` (0 ==
     use doubles in the reference) maps to the 'fast' bf16-split kernel in
     both settings: its f32-grade accuracy already exceeds the tolerances
     the reference's double path is tested to (1e-4 relative,
     tests/dgemm_compressed/test_5codesapi.f90); callers needing the
-    chunked-f64 path use precision='f64' on the functional API.
+    exact f64 path use precision='f64' on the functional API.
     """
     set_global_options(Options(
-        # advisory, like the reference's flag: kernels run on whatever
-        # backend jax selected (interpret mode when that backend is CPU)
-        use_tpu=bool(use_gpu),
         cores=cores,
         precision="fast",
         mean_subtract=bool(meanSubstract),
@@ -144,7 +142,7 @@ def dgemm_plink(
     """``dgemm_plink`` parity (5codesAPI.c:112-130): multiply straight off
     raw PLINK bytes with no separate preprocessing call.  The reference's
     AVX2 path requires indiv % 32 == 0 and no centering (f == NULL,
-    5codesChar.cc:495-523); the TPU pack has neither restriction — packing
+    5codesChar.cc:495-523); the planar16 pack has neither restriction — packing
     IS the (cheap, fused) conversion."""
     obj = plink2compressed(plink, plink_transposed, snps, indiv, f=f)
     opts = get_global_options()

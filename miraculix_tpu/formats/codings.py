@@ -3,7 +3,7 @@ supports, with host-side pack/unpack to a canonical dense matrix.
 
 Mirrors the 32-value ``coding_type`` enum (src/miraculix/Automiraculix.h:
 35-86) and the per-coding packing kernels (1bit*/2bit*/3bit*/plink*/5codes*/
-OneByte*/4Byte* files).  On TPU there is exactly ONE compute coding —
+OneByte*/4Byte* files).  Here there is exactly ONE compute coding —
 planar16 (miraculix_tpu.io.codec) — so these codecs exist for
 interoperability: ingesting foreign buffers, emitting them, and the
 any-to-any Transform (miraculix_tpu.formats.transform).  The canonical
@@ -35,7 +35,7 @@ class Coding(enum.Enum):
     FOUR_BIT = "four_bit"          # FourBit (GPU-internal in the reference)
     ONE_BYTE = "one_byte"          # OneByteGeno (the reference's test oracle)
     FOUR_BYTE = "four_byte"        # FourByteGeno (R ints)
-    PLANAR16 = "planar16"          # OUR compute coding (TPU-native)
+    PLANAR16 = "planar16"          # OUR compute coding
     ONE_BIT_HAPLO = "one_bit_haplo"
     TWO_BIT_HAPLO = "two_bit_haplo"
     ONE_BYTE_HAPLO = "one_byte_haplo"

@@ -25,8 +25,8 @@ with df = n - p - 1; two-sided p-values come from the t survival function
 (scipy, shipped with jax).
 
 The reference has no GWAS driver — this is downstream tooling its users
-run through PLINK/GCTA after exporting; here it rides the same MXU kernels
-as everything else.
+run through PLINK/GCTA after exporting; here it rides the same packed
+kernels as everything else.
 """
 from __future__ import annotations
 
@@ -111,7 +111,7 @@ def gwas_linear(
     ``g``: GenoMatrix, StreamedGeno (the three passes stream chunk by
     chunk — biobank panels beyond HBM scan out of core), or ShardedGeno
     (each pass is a shard_map over the mesh — the biobank-scale
-    multi-chip scan, VERDICT r4 Next #2).  ``y``: [indiv] phenotype.
+    multi-card scan).  ``y``: [indiv] phenotype.
     ``covariates``: optional [indiv, c] matrix (the intercept is always
     added).
     """
@@ -251,7 +251,7 @@ def gwas_mixed(
     if streamed:
         # the streamed host-driven PCG (StreamedGeno.cg_solve) plays the
         # role of the on-device block CG — one pass over the chunks per
-        # iteration, panels beyond HBM included (VERDICT r3 Weak #4)
+        # iteration, panels beyond HBM included
         xs, cg_iters, _ = g.cg_solve(rhs, lam=lam, scale=True, tol=tol,
                                      maxiter=maxiter, precondition=True)
         solved = np.asarray(xs, np.float64)
@@ -318,7 +318,7 @@ def gwas_logistic(
     The only non-matmul ingredient, Σ w z², comes from z² = z + 2·1(z=2):
     the z=2 indicator is ANOTHER packed genotype matrix obtained by pure
     bit manipulation of the planar16 words (``_indicator2_packing``), so
-    the weighted square rides the same MXU kernels.  One dgemm 't' pass
+    the weighted square rides the same packed kernels.  One dgemm 't' pass
     carries [y-p̂ | w | WX] simultaneously; one more carries the indicator.
 
     ``beta`` in the result is the one-step score approximation U/V (good
@@ -326,7 +326,7 @@ def gwas_logistic(
     """
     import jax.numpy as jnp
 
-    from .ops.dgemm import packed_matmul_tall
+    from .ops.dgemm import packed_matmul
 
     n = g.indiv
     y = np.asarray(y, np.float64).reshape(n)
@@ -364,7 +364,6 @@ def gwas_logistic(
     xtwx_inv = np.linalg.inv(x.T @ wx)
 
     # one packed pass for [resid | w | WX]  -> [snps, 2+p]
-    from .ops.common import on_cpu
     from .parallel.sharded import ShardedGeno, sharded_indicator2_dgemm_t
     from .streamed import StreamedGeno
 
@@ -372,19 +371,17 @@ def gwas_logistic(
     zt = _t_pass(g, rhs)
     if isinstance(g, StreamedGeno):
         s2 = np.concatenate([
-            np.asarray(packed_matmul_tall(
-                _indicator2_packing(jnp.asarray(c.zq_n)),
-                jnp.asarray(w[:, None], jnp.float32),
-                interpret=on_cpu()), np.float64)[: c.snps, 0]
+            np.asarray(packed_matmul(
+                _indicator2_packing(jnp.asarray(c.zq_t)),
+                jnp.asarray(w[:, None], jnp.float32)), np.float64)[: c.snps, 0]
             for c in g.chunks])
     elif isinstance(g, ShardedGeno):
         s2 = np.asarray(sharded_indicator2_dgemm_t(
             g, jnp.asarray(w[:, None], jnp.float32)), np.float64)[:, 0]
     else:
-        ind_n = _indicator2_packing(g.zq_n)
-        s2 = np.asarray(packed_matmul_tall(
-            ind_n, jnp.asarray(w[:, None], jnp.float32),
-            interpret=on_cpu()), np.float64)[: g.snps, 0]
+        s2 = np.asarray(packed_matmul(
+            _indicator2_packing(g.zq_t), jnp.asarray(w[:, None], jnp.float32)),
+            np.float64)[: g.snps, 0]
     u, zw, a = zt[:, 0], zt[:, 1], zt[:, 2:]
     swz2 = zw + 2.0 * s2                      # Σ w z²
     v = swz2 - np.einsum("sp,pq,sq->s", a, xtwx_inv, a)
@@ -479,8 +476,8 @@ def gwas_mixed_loco(
             "gwas_mixed_loco needs a device GenoMatrix (the LOCO operator "
             "subsets the packed panel per chromosome); for out-of-core "
             "panels run gwas_mixed per chromosome with a pre-split panel, "
-            "or materialize: GenoMatrix supports ~4B genotypes per 16 GB "
-            "HBM packed")
+            "or materialize: a GenoMatrix holds 4 genotypes per byte in "
+            "each of its two packings")
     if isinstance(g, ShardedGeno):
         return _gwas_mixed_loco_sharded(
             g, y, chrom, covariates=covariates, h2=h2,
@@ -521,8 +518,7 @@ def gwas_mixed_loco(
         # subtraction of the two centered operators (_loco_cg compiles
         # once per distinct chromosome SHAPE; equal-sized chromosomes
         # share one executable).  subset_snps repacks ON DEVICE (2-bit
-        # field gather) — the old host decode+repack was the one
-        # application path that densified (VERDICT r3 Weak #4).
+        # field gather) — no host decode+repack, nothing densifies
         g_c = subset_snps(g, idx)
         s2_loco = sigma2 - float(2.0 * np.sum(freq[idx]
                                               * (1.0 - freq[idx])))
@@ -593,12 +589,10 @@ def _gwas_mixed_loco_sharded(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from .ops.common import on_cpu
     from .parallel.sharded import (_mesh_of, sharded_dgemm,
                                    sharded_loco_cg_solve)
 
     mesh = _mesh_of(g)
-    interpret = on_cpu()
     n = g.indiv
     lam = (1.0 - h2) / h2
     y = np.asarray(y, np.float64).reshape(n)
@@ -650,8 +644,7 @@ def _gwas_mixed_loco_sharded(
         rhs = np.concatenate([y_res[:, None], mzcols], axis=1)
         res = sharded_loco_cg_solve(
             g, w_sh, jnp.asarray(rhs, jnp.float32), jnp.float32(s2_loco),
-            jnp.float32(lam), tol=tol, maxiter=maxiter, mesh=mesh,
-            interpret=interpret)
+            jnp.float32(lam), tol=tol, maxiter=maxiter, mesh=mesh)
         solved = np.asarray(res.x, np.float64)
         iters_total += int(res.iterations)
         ystar = proj(solved[:, 0])

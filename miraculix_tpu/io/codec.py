@@ -1,20 +1,21 @@
-"""Host-side genotype codecs: PLINK .bed <-> 2-bit <-> TPU planar packing.
+"""Host-side genotype codecs: PLINK .bed <-> 2-bit <-> planar16 packing.
 
 The reference (alexfreudenberg/miraculix) stores genotypes in PLINK 2-bit
 codes and converts them into the CPU-friendly "5codes" base-3 byte format
 (reference: src/miraculix/5codesUint.cc:55-101) or uploads raw PLINK bytes to
 the GPU (src/cuda/dgemm_compressed_cuda.cu:43-170).  5codes exists because
-CPUs have no 2-bit dot-product instruction; a TPU does not want it either.
+CPUs have no 2-bit dot-product instruction; a tensor-core GEMM does not want
+it either.
 
-Our TPU-native storage is the **16-way planar int32 packing** ("planar16"):
+Our storage is the **16-way planar 32-bit packing** ("planar16"):
 for a genotype matrix ``G[rows, cols]`` (entries 0/1/2, missing zeroed at pack
 time), let ``Kw = ceil(cols/16)`` (lane-padded).  Word ``W[r, c]`` packs the
 16 genotypes ``G[r, c + m*Kw]`` for ``m = 0..15`` at bit offsets ``2*m``:
 
     W[r, c] = sum_m  G[r, m*Kw + c] << (2*m)
 
-The payoff: inside a Pallas kernel the decode is 16 lane-aligned
-shift-and-mask ops on int32 (the TPU's native lane width) and a concatenation
+The payoff: inside a kernel the decode is 16 shift-and-mask ops on 32-bit
+words and a concatenation
 of *contiguous* [rows, Kw] slabs that lands in natural column order
 ``G[:, 0:16*Kw]`` -- no byte extraction, no cross-lane shuffles, no gather of
 the dense right-hand side.  The dense RHS ``B`` only needs the trivial
@@ -155,11 +156,11 @@ def missing_positions(geno: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# planar16 packing (the TPU-native storage)
+# planar16 packing (the compute storage)
 # ---------------------------------------------------------------------------
 
-LANE = 128          # TPU lane width: packed word (minor) axis padded to this
-SUBLANE = 8         # row padding granularity for f32/int32 tiles
+LANE = 128          # packed word (minor) axis padded to this
+SUBLANE = 8         # default row padding granularity
 
 
 def round_up(x: int, m: int) -> int:
@@ -228,7 +229,3 @@ def unpack_planar16_cols(words: np.ndarray, rows: int,
     return ((w[:rows][:, k] >> (np.uint32(2) * m)[None, :])
             & np.uint32(3)).astype(np.uint8)
 
-
-# (RHS preparation for the packed matmul lives in ops.dgemm._reorder_rhs —
-# the kernel needs the tile-major, plane-scaled layout, not a plain
-# plane-major reshape.)

@@ -544,8 +544,7 @@ void mx_inbreeding(const int64_t* sire, const int64_t* dam, int64_t n,
 // right; for each still-kept offending pair (r^2 > thr within the window)
 // drop the LOWER-MAF member, ties dropping the later SNP.  One tight pass
 // over the [snps, window] float band: ~1e9 comparisons/s where the Python
-// loop paid ~10 us of interpreter overhead per SNP (VERDICT r3 Weak #3 --
-// hours at 1M SNPs vs seconds here).
+// loop paid ~10 us of interpreter overhead per SNP.
 void mx_ld_prune(const float* band2, const double* maf, double thr,
                  int64_t snps, int64_t window, uint8_t* keep) {
     for (int64_t s = 0; s < snps; ++s) keep[s] = 1;

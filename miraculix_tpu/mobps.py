@@ -156,7 +156,7 @@ def compute_relationship(
     scale: bool = True,
 ):
     """On-the-fly relationship matrix of selected individuals (reference
-    ``compute``, MoBPS_R.cc): reconstruct genotypes, pack, run the TPU GRM."""
+    ``compute``, MoBPS_R.cc): reconstruct genotypes, pack, run the packed GRM."""
     from . import from_dense, grm
 
     geno = compute_snps(pop, generation, sex, nr)

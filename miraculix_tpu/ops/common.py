@@ -1,99 +1,75 @@
-"""Shared Pallas kernel utilities: planar16 in-register decode, tiling."""
+"""Shared packed-op utilities: the kernel dispatch, planar16 decode, and the
+exact packed row statistics."""
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 
-def on_cpu() -> bool:
-    """True when the default backend is CPU → run Pallas in interpret mode.
+def kernel_interpret() -> bool:
+    """How a Pallas kernel runs on the default backend — the ONE place this
+    is decided: interpreted on ``cpu`` (the test platform), compiled through
+    Triton on ``gpu``.  Any other platform raises: no kernel here targets
+    it, and running one there by accident must not pass for a result."""
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(
+        f"no packed-op kernel for platform {platform!r}; supported: gpu "
+        "(compiled through Triton) and cpu (interpreted)")
 
-    Mirrors the reference's pattern of keeping the API linkable without the
-    accelerator (GPU stubs, src/miraculix/5codesChar.cc:52-84): on CPU the
-    kernels execute via the Pallas interpreter, bit-compatible with TPU.
-    """
-    return jax.default_backend() == "cpu"
+
+_SHIFTS = tuple(np.uint32(2 * m) for m in range(16))
+
+
+def decode_plane(words: jax.Array, m: int, dtype) -> jax.Array:
+    """Genotypes of plane ``m`` of planar16 words [R, W] -> [R, W] ``dtype``
+    (word column c of plane m is decoded column m*W + c).  Values {0,1,2}
+    are exact in every dtype used here (int8, bf16, f32)."""
+    return ((words >> (2 * m)) & 3).astype(jnp.int32).astype(dtype)
 
 
 def decode_planar16(words: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
     """Decode planar16 uint32 words [R, W] -> genotype matrix [R, 16*W].
 
-    Pure lane-aligned shift/mask VPU ops; the concatenation joins contiguous
-    [R, W] slabs in plane-major order, which by construction of the packing
+    Pure shift/mask ops; the concatenation joins contiguous [R, W] slabs in
+    plane-major order, which by construction of the packing
     (miraculix_tpu.io.codec.pack_planar16) is the natural column order.
-    Genotypes {0,1,2} are exactly representable in bfloat16, so the MXU
-    bf16 path is exact on the genotype operand.
 
     This one decode replaces the reference's per-ISA kernel families
     (5codesIntern.h table lookups, 2bitIntern.h popcount tricks, the CUTLASS
     2-bit microkernel dgemm_compressed_cuda.h:229-269).
     """
-    planes = [
-        ((words >> m) & 3).astype(jnp.int32).astype(dtype) for m in _SHIFTS
-    ]
-    return jnp.concatenate(planes, axis=1)
+    return jnp.concatenate([decode_plane(words, m, dtype) for m in range(16)],
+                           axis=1)
 
 
-import numpy as np  # noqa: E402  (scalar constants; jnp scalars would be traced)
-
-_SHIFTS = tuple(np.uint32(2 * m) for m in range(16))
-_MASKS = tuple(np.uint32(3 << (2 * m)) for m in range(15))
-# 4^-m compensation for decode_planar16_scaled, to fold into the RHS rows of
-# plane m.  Power-of-two scaling is exact in every float dtype.  Plane 15 is
-# shift-decoded (its masked value would not fit positive int32), so scale 1.
-PLANE_SCALES = tuple(4.0 ** (-m) for m in range(15)) + (1.0,)
-
-
-def decode_planar16_scaled(words: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
-    """Decode planar16 words to SCALED genotypes: plane m yields g * 4^m.
-
-    Mask-only decode — 2 VPU ops per plane (AND + convert) instead of 3
-    (shift + AND + convert).  The masked word value is exactly ``g * 4^m``
-    with only 2 significant bits, hence exact in bfloat16 for every plane.
-    Callers must multiply the matching RHS rows by ``PLANE_SCALES[m]`` (the
-    product then equals g * B exactly; the 4^m cancels inside the MXU
-    multiply with no precision loss).  This shaves ~1/3 of the decode cost
-    of the bandwidth-critical dgemm path.  (Mosaic has no uint32->float
-    casts, so values route through int32 — fine for planes 0..14 whose
-    masked values stay below 2^31; plane 15 uses the plain shift decode.)
-    """
-    planes = [
-        (words & mk).astype(jnp.int32).astype(dtype) for mk in _MASKS
-    ]
-    planes.append(((words >> _SHIFTS[15]) & 3).astype(jnp.int32).astype(dtype))
-    return jnp.concatenate(planes, axis=1)
+def pad_words(zq: jax.Array, multiple: int) -> jax.Array:
+    """Zero-pad the packed-word axis of ``zq`` [R, kw] to a multiple of
+    ``multiple`` words.  Zero words decode to genotype 0, so a product over
+    the padded axis is unchanged — provided the operand on the other side
+    is laid out for the padded width (see ``planar_rows``)."""
+    kw = zq.shape[1]
+    kwp = -(-kw // multiple) * multiple
+    if kwp == kw:
+        return zq
+    return jnp.pad(zq, ((0, 0), (0, kwp - kw)))
 
 
-def pick_tile(dim: int, preferred: int, minimum: int) -> int:
-    """Largest power-of-two tile <= preferred that divides ``dim``.
-
-    Raises when no divisor >= ``minimum`` exists: a non-dividing tile would
-    make the kernel grid floor-truncate the axis and silently drop data.
-    (All library packings pad to multiples of 256, so this only fires on
-    hand-built buffers with unaligned padding.)
-    """
-    if preferred < minimum:
-        raise ValueError(
-            f"requested tile {preferred} is below the minimum {minimum} "
-            f"(Mosaic block shapes need the trailing dim % {minimum})")
-    t = preferred
-    while t >= minimum:
-        if dim % t == 0:
-            return t
-        t //= 2
-    raise ValueError(
-        f"axis of {dim} has no power-of-two tile divisor >= {minimum}; "
-        f"repack with row padding to a multiple of {minimum}")
-
-
-def call32(pallas_callable, *args):
-    """Invoke a pallas_call under 32-bit mode: Pallas trace machinery emits
-    i64 scalars when jax_enable_x64 is on, which Mosaic cannot legalize
-    (observed: 'failed to legalize operation func.return (i32, i64)' via the
-    remote compiler).  All kernels here are dtype-explicit, so tracing them
-    in 32-bit mode never changes results."""
-    with jax.enable_x64(False):
-        return pallas_callable(*args)
+def planar_rows(b: jax.Array, kw: int, kwp: int) -> jax.Array:
+    """Lay a dense operand B [cols <= 16*kw, n] out against a packing whose
+    word axis is padded from ``kw`` to ``kwp`` words: row m*kw + c (plane m,
+    word column c) moves to m*kwp + c, every other row is zero.  Returns
+    [16*kwp, n]."""
+    cols, n = b.shape
+    b16 = jnp.zeros((16 * kw, n), b.dtype).at[:cols].set(b)
+    if kwp == kw:
+        return b16
+    return jnp.pad(b16.reshape(16, kw, n),
+                   ((0, 0), (0, kwp - kw), (0, 0))).reshape(16 * kwp, n)
 
 
 def packed_indicator2(zq):
@@ -103,8 +79,6 @@ def packed_indicator2(zq):
     genotype field, so it commutes with transposition: the indicator of a
     transposed packing IS the transposed packing of the indicator.  Powers
     z² = z + 2·1(z=2) tricks (logistic GWAS weights, weighted diagonals)."""
-    import jax.numpy as jnp
-
     m55 = jnp.uint32(0x55555555)
     return ((zq >> 1) & ~zq) & m55
 
@@ -114,8 +88,6 @@ def packed_row_sq_stats(zq):
     Σ z² = Σ z + 2·#{z = 2} for z ∈ {0,1,2} — both terms integer-exact
     from shift/mask plane sums (missing packs as 0 and contributes 0).
     The shared core of the single-chip / 1D- / 2D-sharded GRM diagonals."""
-    import jax.numpy as jnp
-
     s1 = jnp.zeros((zq.shape[0],), jnp.int32)
     c2 = jnp.zeros((zq.shape[0],), jnp.int32)
     for m in range(16):

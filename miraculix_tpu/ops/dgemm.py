@@ -1,10 +1,13 @@
 """dgemm_compressed: genotype matrix x dense matrix, straight off packed bits.
 
-TPU-native replacement for the reference's three GEMM engines — the 5codes
-CPU algorithm (src/miraculix/5codesIntern.h:214-316), the direct-PLINK AVX2
+Replacement for the reference's three GEMM engines — the 5codes CPU
+algorithm (src/miraculix/5codesIntern.h:214-316), the direct-PLINK AVX2
 kernel (src/miraculix/plink256.cc:64-662) and the CUTLASS mixed-input GPU GEMM
-(src/cuda/dgemm_compressed_cuda.cu:218-489).  One Pallas kernel: DMA planar16
-words HBM→VMEM, decode 2-bit genotypes in-register on the VPU, feed the MXU.
+(src/cuda/dgemm_compressed_cuda.cu:218-489).  Like the CUTLASS path, one
+kernel decodes the 2-bit operand inside the GEMM main loop: a Pallas kernel
+compiled through Triton loads a tile of planar16 words, decodes the 16
+genotype planes in registers and feeds each to a bf16 tensor-core dot with
+f32 accumulation, so the decoded panel never touches device memory.
 
 Semantics (reference docs/genotype_matrix_multiplication.md, Julia test
 tests/dgemm_compressed/test.jl:96-105): for genotype matrix Z of shape
@@ -21,713 +24,234 @@ rank-1 epilogue, exactly like the reference's cuBLAS epilogue
     'n': C -= 2 * (fᵀ B)            (one [n]-vector, broadcast over rows)
     't': C -= 2 * f ⊗ (1ᵀ B)        (outer product)
 
-Precision: genotypes are exact in bf16.  "fast" splits B into two bf16
-halves (B ≈ hi + lo) and runs two bf16 MXU passes with f32 accumulation —
-f32-grade accuracy at bf16 speed.  "f64" expands B in base 2^7 int8 digits
-and rides exact int8×int8→int32 MXU passes, recombined in host float64
-(~1e-15 relative; `packed_matmul_exact` — the Ozaki scheme replacing the
-reference's long-double accumulators, Vector.matrix.D.cc:42-229).
+Precision: genotypes are exact in bf16, so the tiers differ only in how many
+bf16 pieces B is split into (B ≈ b₁ + … + b_p, each an exact bf16 value):
+"bf16" one piece (~2e-3 relative), "fast" two (f32-grade, ~1e-6), "f32"
+three (all 24 bits of B: f32 accumulation is the only rounding).  "f64"
+expands B in base 2^7 int8 digits and runs exact int8×int8→int32 passes,
+recombined in host float64 (~1e-15 relative; `packed_matmul_exact` — the
+Ozaki scheme replacing the reference's long-double accumulators,
+Vector.matrix.D.cc:42-229).
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..geno import GenoMatrix
-from .common import (PLANE_SCALES, call32, decode_planar16_scaled,
-                     on_cpu, pick_tile)
+from .common import (decode_planar16, kernel_interpret, pad_words,
+                     planar_rows)
 
-DEFAULT_TILE_R = 1024  # swept on v5e: 1024x256 -> 23.4 Tops/s at ncol=32,
-DEFAULT_TILE_KW = 256  # ~95% of the N-padded MXU roofline (256 words = 4096
-#                        decoded genotype columns per k-step)
+# bf16 pieces of B per precision tier (see module docstring)
+_PARTS = {"bf16": 1, "fast": 2, "f32": 3}
 
-
-# ---------------------------------------------------------------------------
-# Kernels
-# ---------------------------------------------------------------------------
-
-def _pmm_kernel_split(zq_ref, bcat_ref, out_ref, *, n):
-    """acc += decode(zq) @ [b_hi || b_lo], halves summed after the dot.
-
-    ONE bf16 MXU pass over the concatenated hi/lo RHS instead of two dots:
-    the MXU pads the N dimension to its 128-lane width, so for n <= 64 the
-    hi and lo halves ride the same pass for free (measured 1.55x over the
-    two-dot form at n=32 on v5e).  The decode is the mask-only scaled
-    variant (plane m carries g*4^m); the RHS rows arrive pre-scaled by 4^-m
-    so products are exactly g*B.
-    """
-    k = pl.program_id(1)
-    d = decode_planar16_scaled(zq_ref[...], jnp.bfloat16)
-    prod = jnp.dot(d, bcat_ref[...], preferred_element_type=jnp.float32)
-    prod = prod[:, :n] + prod[:, n:]
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
+# Kernel blocking, read when the kernel is traced: rows of the packing per
+# program, packed words per step of the in-program contraction loop (16x as
+# many genotype columns), output columns per program — powers of two, as
+# Triton requires — and packed words per K chunk.  Each chunk is its own
+# program, and the chunks are summed afterwards: more programs for panels
+# with few rows.
+BLOCK_ROWS = 128
+BLOCK_WORDS = 32
+MAX_BLOCK_COLS = 128
+CHUNK_WORDS = 1024
+FLUSH_PLANES = 4      # planes per tensor-core accumulation chain (divides 16)
+NUM_WARPS = 8
+NUM_STAGES = 3
 
 
-def _pmm_kernel_split_wide(zq_ref, b_ref, out_ref):
-    """acc += decode(zq) @ b_hi + decode(zq) @ b_lo, split done HERE.
+def split_bf16(b: jax.Array, parts: int) -> list:
+    """Split f32 ``b`` into ``parts`` bf16 arrays whose exact sum is b to
+    about 8·parts significant bits (all of f32's 24 at parts=3).  Every
+    piece is the remainder rounded to the nearest bf16, and the remainder
+    update is exact in f32.
 
-    For n > 64 both MXU pass counts are identical (each half pads to the
-    128-lane width anyway), so the two-dot form loses nothing — and taking
-    the f32 RHS tile directly kills the O(16·kw·n) host-side
-    split+concat prepass.  In-kernel casts are safe: Mosaic has no
-    excess-precision folding pass (cf. the reduce_precision note below).
-    """
-    k = pl.program_id(1)
-    d = decode_planar16_scaled(zq_ref[...], jnp.bfloat16)
-    b32 = b_ref[...]
-    bhi = b32.astype(jnp.bfloat16)
-    blo = (b32 - bhi.astype(jnp.float32)).astype(jnp.bfloat16)
-    prod = (jnp.dot(d, bhi, preferred_element_type=jnp.float32)
-            + jnp.dot(d, blo, preferred_element_type=jnp.float32))
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
+    The rounding is integer arithmetic on the f32 bits (round half to
+    even, then keep the top 16 bits), not float casts or
+    ``reduce_precision``: XLA's excess-precision simplifications can fold
+    ``x - f32(bf16(x))`` to 0 and silently drop every piece after the
+    first."""
+    pieces = []
+    rest = b.astype(jnp.float32)
+    for _ in range(parts - 1):
+        bits = jax.lax.bitcast_convert_type(rest, jnp.uint32)
+        bits = bits + jnp.uint32(0x7FFF) + ((bits >> 16) & jnp.uint32(1))
+        hi = jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                          jnp.float32)
+        pieces.append(hi.astype(jnp.bfloat16))      # exact: 8 bits
+        rest = rest - hi                            # exact
+    pieces.append(rest.astype(jnp.bfloat16))
+    return pieces
 
 
-def _pmm_kernel_split_wide_pp(zq_ref, b_ref, out_ref):
-    """Per-plane variant of ``_pmm_kernel_split_wide``: one hi+lo dot pair
-    per decode plane instead of concat-all-16-then-two-dots.
+def _dgemm_kernel(zq_ref, *refs, kw, planes, block_words, chunk_words):
+    """out[c, rows, cols] = decode(zq[rows, chunk c]) @ Σ_p b_p[chunk c, cols].
 
-    Planes are disjoint K-slices of the contraction, so summing the 16
-    partial products is exact; issuing a dot right after each plane's VPU
-    decode lets Mosaic overlap plane m+1's decode with plane m's MXU pass —
-    the same restructure that took the tall schedule 219→193 us and the
-    crossprod kernels to 551 T.  RHS block rows arrive plane-tile-major and
-    pre-scaled by 4^-m (``_reorder_rhs``), cancelling the mask-only
-    decode's 4^m plane factor exactly.
-    """
-    from .common import _MASKS, _SHIFTS
+    One program covers one K chunk of ``chunk_words`` packed words, as one
+    loop over (word tile t, plane m) pairs, planes fastest: plane m of word
+    tile t holds the genotypes of decoded columns m*kw + t*block_words +
+    [0, block_words), so each step dots one decoded plane with the matching
+    row slice of every B piece (no RHS reordering), and the steps of a
+    tile re-read the same words from cache.  Only the first ``planes``
+    planes hold columns of B; the rest are padding and are skipped.  The
+    caller sums the chunks.
 
-    k = pl.program_id(1)
-    words = zq_ref[...]
-    tkw = words.shape[1]
-    b32 = b_ref[...]
-    bhi = b32.astype(jnp.bfloat16)
-    blo = (b32 - bhi.astype(jnp.float32)).astype(jnp.bfloat16)
-    acc = None
-    for m in range(16):
-        if m < 15:
-            plane = (words & _MASKS[m]).astype(jnp.int32).astype(jnp.bfloat16)
-        else:
-            plane = ((words >> _SHIFTS[15]) & 3).astype(jnp.int32).astype(
-                jnp.bfloat16)
-        p = (jnp.dot(plane, bhi[m * tkw:(m + 1) * tkw, :],
-                     preferred_element_type=jnp.float32)
-             + jnp.dot(plane, blo[m * tkw:(m + 1) * tkw, :],
-                       preferred_element_type=jnp.float32))
-        acc = p if acc is None else acc + p
+    The dots accumulate in ``part``, which the compiler keeps in the tensor
+    cores' accumulator; every FLUSH_PLANES steps it is added into ``acc``
+    by an ordinary f32 add.  On the card, a tensor-core accumulation chain
+    loses precision with its length (measured ~2e-5 relative over a chain
+    of 1024 words, 4e-5 over 2048), so the chains are kept short."""
+    *b_refs, out_ref = refs
+    rows, cols = out_ref.shape
+    tiles = chunk_words // block_words
+    t0 = pl.program_id(2) * tiles
+    n_tiles = jnp.minimum(tiles, kw // block_words - t0)
+    zeros = jnp.zeros((rows, cols), jnp.float32)
 
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = acc
+    def step(i, carry):
+        acc, part = carry
+        t, m = t0 + i // planes, i % planes
+        w0 = pl.multiple_of(t * block_words, block_words)
+        words = zq_ref[:, pl.ds(w0, block_words)]
+        shift = (2 * m).astype(words.dtype)
+        plane = ((words >> shift) & 3).astype(jnp.int32).astype(jnp.bfloat16)
+        r0 = pl.multiple_of(m * kw + w0, block_words)
+        for b_ref in b_refs:
+            part = part + jnp.dot(plane, b_ref[pl.ds(r0, block_words), :],
+                                  preferred_element_type=jnp.float32)
+        flush = (m % FLUSH_PLANES == FLUSH_PLANES - 1) | (m == planes - 1)
+        return (jnp.where(flush, acc + part, acc),
+                jnp.where(flush, zeros, part))
 
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + acc
-
-
-def _pmm_tall_kernel(bt_ref, zq_ref, out_ref, *, mode="split"):
-    """out[rows, 16*tile_kw] += Bᵀ-tile @ decode(zq-tile).
-
-    The "tall" schedule for skinny RHS (n < 64): the decoded genotype tile
-    is the MXU's stationary operand with the BIG axis on the 128 lanes, and
-    the 2n hi/lo RHS rows stream through — the same trick XLA's dense path
-    uses for skinny matmuls.  At ncol=32 this measures 44 Tops/s (~90% of
-    bf16 MXU peak) vs 19 Tops/s for the wide schedule on v5e, because the
-    wide schedule pads N=2n up to the 128-lane width.
-
-    In "split" mode ``bt_ref`` arrives as f32 rows and the bf16 hi/lo split
-    happens HERE, not in an XLA prepass: at K=1M the host-side
-    split+concat is an O(K·n) bandwidth pass worth ~18% of the whole step
-    (measured 2.83→2.33 ms on v5e).  Explicit casts are safe inside the
-    kernel — Mosaic has no excess-precision folding pass.
-    """
-    k = pl.program_id(1)
-    if mode == "f32":
-        d = decode_planar16_scaled(zq_ref[...], jnp.float32)
-        prod = jax.lax.dot_general(
-            bt_ref[...], d, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)
-    elif mode == "split":
-        # PER-PLANE dots instead of concat+one-dot: the concat forces all
-        # 16 plane decodes (VPU) to finish before the MXU starts; issuing
-        # one dot per plane lets Mosaic overlap plane m+1's decode with
-        # plane m's matmul (decode was ~35% of the serialized step).  Each
-        # plane's product lands in its own output column slice — exactly
-        # the plane-major layout the concat produced.
-        # (pair_planes / split1 wide-dot restructures were A/B'd on v5e in
-        # round 5 and LOST everywhere — 0.60-0.62 vs 0.72 MXU at K=1M,
-        # 0.48-0.56 for the one-decode two-dot form; the per-plane
-        # decode/MXU overlap is what carries this kernel.  See git
-        # history for the variants.)
-        prod = _tall_split_rows(bt_ref[...], zq_ref[...])
-    else:
-        d = decode_planar16_scaled(zq_ref[...], jnp.bfloat16)
-        prod = jnp.dot(bt_ref[...], d, preferred_element_type=jnp.float32)
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
+    acc, _ = jax.lax.fori_loop(jnp.int32(0), planes * n_tiles, step,
+                               (zeros, zeros))
+    out_ref[...] = acc
 
 
-def _tall_split_rows(bt32, words):
-    """Shared body of the split-mode tall kernels: ``bt32`` [n, tile_s]
-    f32 TRANSPOSED rows, hi/lo split here, per-plane dots.  (A natural-
-    layout dim-0-contraction variant was A/B'd in r5 and ran at ~half the
-    MXU rate — Mosaic cannot stream a K-major LHS; the host-side
-    transpose pass stays.)  Returns [2n, 16*tile_kw] f32."""
-    from .common import _MASKS, _SHIFTS
-
-    bhi = bt32.astype(jnp.bfloat16)
-    blo = (bt32 - bhi.astype(jnp.float32)).astype(jnp.bfloat16)
-    bcat = jnp.concatenate([bhi, blo], axis=0)      # [2n, ts]
-    prods = []
-    for m in range(16):
-        if m < 15:
-            plane = (words & _MASKS[m]).astype(jnp.int32).astype(
-                jnp.bfloat16)
-        else:
-            plane = ((words >> _SHIFTS[15]) & 3).astype(jnp.int32).astype(
-                jnp.bfloat16)
-        prods.append(jnp.dot(bcat, plane,
-                             preferred_element_type=jnp.float32))
-    return jnp.concatenate(prods, axis=1)
+def _pow2_at_least(n: int, lo: int) -> int:
+    p = lo
+    while p < n:
+        p *= 2
+    return p
 
 
-def _pmm_tall_kernel_cv(bt_ref, zq_ref, cv_ref, out_ref, vout_ref):
-    """Split-mode tall kernel + FUSED centering reduction.
-
-    ``vout[j] = Σ_s cv_s B_sj`` accumulates from the same f32 RHS block
-    the matmul already holds in VMEM — the separate rank-1 epilogue's
-    matvec re-read B from HBM (an O(K·n) pass worth ~0.36 ms of the
-    2.28 ms many_snps step, measured r5).  The centering partial is
-    k-accumulated at grid column i == 0 only (it is i-independent)."""
-    from .common import _MASKS, _SHIFTS
-
-    i = pl.program_id(0)
-    k = pl.program_id(1)
-    bt32 = bt_ref[...]                               # [n, ts] rows
-    prod = _tall_split_rows(bt32, zq_ref[...])
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
-
-    # VPU reduction, not a dot: an N=1 MXU matmul at HIGHEST precision
-    # costs whole extra passes (measured +29-48% per step); the
-    # broadcast-multiply + row-sum is noise on the VPU
-    vpart = jnp.sum(bt32 * cv_ref[...], axis=1, keepdims=True)  # [n, 1]
-
-    @pl.when(jnp.logical_and(i == 0, k == 0))
-    def _vinit():
-        vout_ref[...] = vpart
-
-    @pl.when(jnp.logical_and(i == 0, k != 0))
-    def _vacc():
-        vout_ref[...] = vout_ref[...] + vpart
+def _block_cols(n: int, cap: int = MAX_BLOCK_COLS) -> int:
+    """Output columns per program: the power of two >= n (at least 16, the
+    smallest dot width Triton takes), capped at ``cap``.  Padded columns
+    are zero and cost flops only, which a memory-bound skinny product has
+    to spare."""
+    return min(_pow2_at_least(n, 16), cap)
 
 
-def _pmm_kernel_bf16(zq_ref, b_ref, out_ref):
-    """acc += decode(zq) @ bf16(b): the single-pass speed tier (~2e-3
-    relative error from rounding B once; the genotype operand stays exact).
-    Half the MXU work of the split tier — for iterative solvers that
-    recompute residuals, and screening passes."""
-    k = pl.program_id(1)
-    d = decode_planar16_scaled(zq_ref[...], jnp.bfloat16)
-    prod = jnp.dot(d, b_ref[...], preferred_element_type=jnp.float32)
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
+def _blocks(rows: int, kw: int, n: int, interpret: bool) -> tuple:
+    """(block_rows, block_words, block_cols): the Triton sizes tuned on the
+    card, or, for the kernel interpreted on the CPU, which pays per
+    program and per loop step rather than per byte, blocks as large as the
+    operands (up to 1,024 rows, one K chunk of words, 512 columns)."""
+    if not interpret:
+        return BLOCK_ROWS, BLOCK_WORDS, _block_cols(n)
+    return (min(_pow2_at_least(rows, 16), 1024),
+            min(_pow2_at_least(kw, 16), CHUNK_WORDS), _block_cols(n, 512))
 
 
-def _pmm_kernel_f32(zq_ref, b_ref, out_ref):
-    """acc += decode(zq) @ b in f32 at HIGHEST matmul precision."""
-    k = pl.program_id(1)
-    d = decode_planar16_scaled(zq_ref[...], jnp.float32)
-    prod = jax.lax.dot_general(
-        d, b_ref[...],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
+@functools.partial(jax.jit, static_argnames=("precision",))
+def packed_matmul(zq: jax.Array, b: jax.Array, *,
+                  precision: str = "fast") -> jax.Array:
+    """Raw product decode(zq) @ B -> f32 [rows, n], no centering.
 
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = prod
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + prod
-
-
-# ---------------------------------------------------------------------------
-# Host-side launcher
-# ---------------------------------------------------------------------------
-
-def _reorder_rhs(b: jax.Array, cols: int, kw: int, tile_kw: int) -> jax.Array:
-    """Pad B [cols, n] to 16*kw rows and reorder rows to plane-tile-major
-    order so that kernel block k (rows [k*16*tile_kw, (k+1)*16*tile_kw)) is
-    exactly the RHS slab matching the decoded columns of packed word tile k.
-
-    Row at original index m*kw + c (plane m, word column c = k*tile_kw + t)
-    moves to position k*16*tile_kw + m*tile_kw + t, scaled by 4^-m to cancel
-    the mask-only decode's 4^m plane factor (exact power-of-two scaling).
-    """
-    n = b.shape[1]
-    nk = kw // tile_kw
-    bpad = jnp.zeros((16 * kw, n), b.dtype).at[:cols].set(b)
-    scales = jnp.asarray(PLANE_SCALES, b.dtype).reshape(16, 1, 1, 1)
-    return (
-        (bpad.reshape(16, nk, tile_kw, n) * scales)
-        .transpose(1, 0, 2, 3)
-        .reshape(16 * kw, n)
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("tile_r", "tile_kw", "split", "single_bf16", "interpret",
-                     "per_plane"),
-)
-def packed_matmul(
-    zq: jax.Array,
-    b: jax.Array,
-    *,
-    tile_r: int = DEFAULT_TILE_R,
-    tile_kw: int = DEFAULT_TILE_KW,
-    split: bool = True,
-    single_bf16: bool = False,
-    interpret: bool = False,
-    per_plane: bool = True,
-) -> jax.Array:
-    """Raw product decode(zq) @ B_padded -> f32 [rows_pad, n].
-
-    ``zq``: int32 planar16 [rows_pad, kw]; ``b``: [cols, n] real matrix where
-    cols <= 16*kw (padded internally).  No centering.  ``single_bf16``
-    overrides ``split``: one bf16 pass, ~2e-3 relative (the speed tier).
-    """
+    ``zq``: uint32 planar16 [rows, kw]; ``b``: [cols <= 16*kw, n] (rows past
+    ``cols`` count as zero).  ``precision``: "bf16", "fast" or "f32" (the
+    number of bf16 pieces of B, see the module docstring).  Rows and words
+    are zero-padded to the block sizes and the result sliced back, so any
+    shape works; the library's packings (rows padded to 256, words to 128)
+    need no copy."""
+    if precision not in _PARTS:
+        raise ValueError(f"precision must be one of {sorted(_PARTS)}, "
+                         f"got {precision!r}")
     rows, kw = zq.shape
     cols, n = b.shape
-    if n > 512:
-        # wide RHS: chunk the N axis — the [16*tile_kw, n] RHS block is the
-        # one VMEM term tiling cannot shrink (tile_kw bottoms out at 128),
-        # so beyond ~512 columns the kernel must run per column chunk
-        return jnp.concatenate(
-            [packed_matmul(zq, b[:, j: j + 512], tile_r=tile_r,
-                           tile_kw=tile_kw, split=split,
-                           single_bf16=single_bf16, interpret=interpret,
-                           per_plane=per_plane)
-             for j in range(0, n, 512)], axis=1)
-    tile_r = pick_tile(rows, tile_r, 8)
-    tile_kw = pick_tile(kw, tile_kw, 128)
+    if cols > 16 * kw:
+        raise ValueError(f"B has {cols} rows; the packing holds {16 * kw}")
+    interpret = kernel_interpret()
+    block_rows, block_words, bn = _blocks(rows, kw, n, interpret)
+    zqp = pad_words(zq, block_words)
+    kwp = zqp.shape[1]
+    rows_p = -(-rows // block_rows) * block_rows
+    if rows_p != rows:
+        zqp = jnp.pad(zqp, ((0, rows_p - rows), (0, 0)))
+    n_p = -(-n // bn) * bn
+    planes = max(1, -(-cols // kw))         # planes that hold columns of B
+    b2 = planar_rows(b.astype(jnp.float32), kw, kwp)[: planes * kwp]
+    if n_p != n:
+        b2 = jnp.pad(b2, ((0, 0), (0, n_p - n)))
+    pieces = split_bf16(b2, _PARTS[precision])
+    chunk_words = min(CHUNK_WORDS, kwp) // block_words * block_words
+    n_chunks = -(-kwp // chunk_words)
 
-    # Mosaic's scoped-VMEM stack is 16 MB and its staging copies add ~60%
-    # on top of the naive operand sizes (measured: a 10.7 MB estimate
-    # compiled to a 16.2 MB stack for the f32 kernel at n=500, kw=128 —
-    # the round-2 verify drive's OOM).  Shrink the row tile until the
-    # padded-N estimate clears a 12 MB budget.
-    npad_l = -(-n // 128) * 128
-    bpp = 2 if single_bf16 else 4
-
-    def wide_est(tr, tkw):
-        return (1.6 * (tr * 16 * tkw * bpp + 16 * tkw * npad_l * bpp)
-                + 2 * tr * npad_l * 4 + tr * tkw * 4)
-
-    while (wide_est(tile_r, tile_kw) > 12 * 2**20
-           and tile_r // 2 >= 256 and rows % (tile_r // 2) == 0):
-        tile_r //= 2
-
-    split_in_kernel = split and not single_bf16 and n > 64
-    if split_in_kernel:
-        # The in-kernel hi/lo split (see _pmm_kernel_split_wide) keeps the
-        # f32 RHS tile plus two bf16 temporaries live — ~2 MB more VMEM
-        # than the host-concat form — so shrink tiles until the working set
-        # clears Mosaic's 16 MB scoped-VMEM stack (with headroom for
-        # Mosaic's own margins).  Halving only while the result still
-        # divides the axis and respects the 128 trailing-dim minimum.
-        # N counts at its 128-lane padded width, and the budget leaves
-        # ~4 MB for Mosaic staging copies (measured: est 12.6 MB compiled
-        # to a 16.2 MB stack at n=500, kw=128 — the verify drive's OOM).
-        npad = -(-n // 128) * 128
-        def vmem_est(tr, tkw):
-            return (tr * 16 * tkw * 2                # decoded tile bf16
-                    + 16 * tkw * npad * (4 + 2 + 2)  # b32 + bhi + blo
-                    + 2 * tr * npad * 4              # prod + out accumulator
-                    + tr * tkw * 4)                  # packed zq tile
-        budget = 12 * 2**20
-        while (vmem_est(tile_r, tile_kw) > budget
-               and tile_kw // 2 >= 128 and kw % (tile_kw // 2) == 0):
-            tile_kw //= 2
-        while (vmem_est(tile_r, tile_kw) > budget
-               and tile_r // 2 >= 256 and rows % (tile_r // 2) == 0):
-            tile_r //= 2
-        if vmem_est(tile_r, tile_kw) > budget:
-            # tiles cannot shrink further (divisibility / Mosaic minima):
-            # fall back to the host-concat split, whose RHS tile is bf16
-            # [16*tkw, 2n] — roughly half the in-kernel form's footprint
-            split_in_kernel = False
-
-    nk = kw // tile_kw
-    b2 = _reorder_rhs(b.astype(jnp.float32), cols, kw, tile_kw)
-    grid = (rows // tile_r, nk)
-
-    zq_spec = pl.BlockSpec((tile_r, tile_kw), lambda r, k: (r, k))
-    b_spec = pl.BlockSpec((16 * tile_kw, n), lambda r, k: (k, 0))
-    out_spec = pl.BlockSpec((tile_r, n), lambda r, k: (r, 0))
-    out_shape = jax.ShapeDtypeStruct((rows, n), jnp.float32)
-
-    flops = 2 * rows * 16 * kw * n * (2 if split else 1)
-    cost = pl.CostEstimate(
-        flops=flops,
-        bytes_accessed=zq.size * 4 + b2.size * b2.dtype.itemsize + rows * n * 4,
-        transcendentals=0,
-    )
-    params = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "arbitrary"),
-    )
-
-    if single_bf16:
-        return call32(pl.pallas_call(
-            _pmm_kernel_bf16,
-            grid=grid,
-            in_specs=[zq_spec, b_spec],
-            out_specs=out_spec,
-            out_shape=out_shape,
-            compiler_params=params,
-            cost_estimate=cost,
-            interpret=interpret,
-        ), zq, b2.astype(jnp.bfloat16))
-    if split:
-        if split_in_kernel:
-            # for n > 64 the two-dot form costs the same MXU passes as the
-            # N-concat trick and skips the host-side split+concat prepass;
-            # per_plane overlaps each plane's VPU decode with the previous
-            # plane's MXU pass (A/B'd on v5e — see BENCHMARKS.md)
-            return call32(pl.pallas_call(
-                _pmm_kernel_split_wide_pp if per_plane
-                else _pmm_kernel_split_wide,
-                grid=grid,
-                in_specs=[zq_spec, b_spec],
-                out_specs=out_spec,
-                out_shape=out_shape,
-                compiler_params=params,
-                cost_estimate=cost,
-                interpret=interpret,
-            ), zq, b2)
-        # NB: must use reduce_precision, not astype(bf16).astype(f32) — XLA's
-        # allow-excess-precision pass elides downcast/upcast pairs and would
-        # fold blo to 0, silently degrading the split to single-bf16.
-        bhi_f32 = jax.lax.reduce_precision(b2, exponent_bits=8, mantissa_bits=7)
-        bhi = bhi_f32.astype(jnp.bfloat16)
-        blo = (b2 - bhi_f32).astype(jnp.bfloat16)
-        bcat = jnp.concatenate([bhi, blo], axis=1)
-        bcat_spec = pl.BlockSpec((16 * tile_kw, 2 * n), lambda r, k: (k, 0))
-        return call32(pl.pallas_call(
-            functools.partial(_pmm_kernel_split, n=n),
-            grid=grid,
-            in_specs=[zq_spec, bcat_spec],
-            out_specs=out_spec,
-            out_shape=out_shape,
-            compiler_params=params,
-            cost_estimate=cost,
-            interpret=interpret,
-        ), zq, bcat)
-    return call32(pl.pallas_call(
-        _pmm_kernel_f32,
-        grid=grid,
-        in_specs=[zq_spec, b_spec],
-        out_specs=out_spec,
-        out_shape=out_shape,
-        compiler_params=params,
-        cost_estimate=cost,
+    out = pl.pallas_call(
+        functools.partial(_dgemm_kernel, kw=kwp, planes=planes,
+                          block_words=block_words, chunk_words=chunk_words),
+        grid=(rows_p // block_rows, n_p // bn, n_chunks),
+        in_specs=[pl.BlockSpec((block_rows, kwp), lambda i, j, c: (i, 0))]
+        + [pl.BlockSpec((planes * kwp, bn), lambda i, j, c: (0, j))]
+        * len(pieces),
+        out_specs=pl.BlockSpec((None, block_rows, bn),
+                               lambda i, j, c: (c, i, j)),
+        out_shape=jax.ShapeDtypeStruct((n_chunks, rows_p, n_p), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        cost_estimate=pl.CostEstimate(
+            flops=2 * rows_p * planes * kwp * n_p * len(pieces),
+            bytes_accessed=(zqp.size * 4 * (n_p // bn)
+                            + planes * kwp * n_p * 2 * len(pieces)
+                            * (rows_p // block_rows)
+                            + n_chunks * rows_p * n_p * 4),
+            transcendentals=0),
         interpret=interpret,
-    ), zq, b2)
+        name="packed_dgemm",
+    )(zqp, *pieces)
+    return jnp.sum(out, axis=0)[:rows, :n]
 
 
-TALL_TILE_S = 4096   # round-4 re-sweep after the per-plane restructure:
-TALL_TILE_KW = 256   # 4096 beats the old 1024 default in EVERY regime on
-# alternating interleaved rounds (small K=65K: 178 vs 209-233 us; medium
-# K=262K: 0.71 vs 0.80 ms; K=1M: 1.94 vs 2.05-2.20 ms) — fewer
-# contraction grid steps amortize the per-step pipeline overhead.  The
-# VMEM budget shrink in packed_matmul_tall halves tile_s back for wide-n
-# calls where the larger b-block would blow Mosaic's scoped-VMEM stack.
+# Packed words per K block of the int8 digit passes, read when traced:
+# bounds the decoded int8 slab at rows x 16K bytes
+_DIGIT_BLOCK_WORDS = 1024
 
 
-@functools.partial(
-    jax.jit, static_argnames=("tile_s", "tile_kw", "mode", "interpret")
-)
-def packed_matmul_tall(
-    zq_other: jax.Array,
-    b: jax.Array,
-    *,
-    tile_s: int = TALL_TILE_S,
-    tile_kw: int = TALL_TILE_KW,
-    mode: str = "split",
-    interpret: bool = False,
-    center_vec: Optional[jax.Array] = None,
-) -> jax.Array:
-    """decode(zq_other)ᵀ @ B computed TRANSPOSED: Cᵀ = Bᵀ @ decode(zq_other).
-
-    ``zq_other`` is the packing of the OTHER orientation: its packed rows
-    are the contraction axis and its decoded columns are the output rows.
-    For C = Z @ B pass the transposed twin (zq_t); for C = Zᵀ @ B pass zq_n.
-    ``b``: [contract, n] with contract <= packed rows.  Returns f32
-    [16*kw, n] (output rows = decoded columns, zero padding past the real
-    count).  Preferred over :func:`packed_matmul` when n <= 64 — see
-    ``_pmm_tall_kernel``.  ``mode``: "split" (bf16 hi/lo, ~3e-6 relative),
-    "bf16" (single pass, ~2e-3), "f32" (HIGHEST-precision dot, ~1e-7).
-    """
-    spad, kwi = zq_other.shape
-    contract, n = b.shape
-    if mode not in ("split", "bf16", "f32"):
-        raise ValueError(f"mode must be split/bf16/f32, got {mode!r}")
-    tile_s = pick_tile(spad, tile_s, 16)
-    tile_kw = pick_tile(kwi, tile_kw, 128)
-    # scoped-VMEM budget (12 MB of the 16 MB stack, leaving Mosaic's
-    # ~1.6x staging margin): the 4096 default tile_s is the fast choice
-    # for the narrow-RHS tall regime; wide-n calls halve it back
-    npad_b = max(16, ((2 * n if mode == "split" else n) + 15) // 16 * 16)
-
-    def _vmem_est(ts, tkw):
-        return (npad_b * ts * 4          # b block (f32 rows in)
-                + ts * tkw * 4           # packed zq tile
-                + 2 * ts * tkw * 2       # ~2 decoded planes live (bf16)
-                + npad_b * 16 * tkw * 4)  # output accumulator block
-
-    while (_vmem_est(tile_s, tile_kw) > 12 * 2**20
-           and tile_s // 2 >= 512 and spad % (tile_s // 2) == 0):
-        tile_s //= 2
-    ni = kwi // tile_kw
-
-    if mode == "split":
-        # f32 rows in, hi/lo split inside the kernel (see _pmm_tall_kernel):
-        # no O(K·n) XLA prepass beyond pad+transpose.
-        npad = max(16, ((n + 15) // 16) * 16)
-        if contract == spad and n == npad:
-            bcat = b.astype(jnp.float32).T
-        else:
-            bcat = jnp.zeros((spad, npad), jnp.float32).at[:contract, :n].set(
-                b.astype(jnp.float32)).T
-        in_rows, rows_pad = npad, 2 * npad
-        bytes_b = bcat.size * 4
-    else:
-        bpad = jnp.zeros((spad, n), jnp.float32).at[:contract].set(
-            b.astype(jnp.float32))
-        bt = bpad.T
-        if mode == "bf16":
-            bcat = bt.astype(jnp.bfloat16)            # [n, spad]
-        else:                                         # f32
-            bcat = bt                                 # [n, spad] f32
-        granule = 8 if mode == "f32" else 16          # sublane granularity
-        rows_pad = max(granule, ((n + granule - 1) // granule) * granule)
-        if rows_pad != n:
-            bcat = jnp.zeros((rows_pad, spad), bcat.dtype).at[:n].set(bcat)
-        in_rows = rows_pad
-        bytes_b = bcat.size * bcat.dtype.itemsize
-
-    grid = (ni, spad // tile_s)
-    cost = pl.CostEstimate(
-        flops=2 * rows_pad * spad * 16 * kwi,
-        bytes_accessed=zq_other.size * 4 * ni + bytes_b
-        + rows_pad * 16 * kwi * 4,
-        transcendentals=0,
-    )
-    b_spec = pl.BlockSpec((in_rows, tile_s), lambda i, k: (0, k))
-    if center_vec is not None:
-        if mode != "split":
-            raise ValueError("center_vec fusion is a split-mode feature")
-        cvp = jnp.zeros((1, spad), jnp.float32).at[0, :contract].set(
-            center_vec.astype(jnp.float32)[:contract])
-        out, vout = call32(pl.pallas_call(
-            _pmm_tall_kernel_cv,
-            grid=grid,
-            in_specs=[
-                b_spec,
-                pl.BlockSpec((tile_s, tile_kw), lambda i, k: (k, i)),
-                pl.BlockSpec((1, tile_s), lambda i, k: (0, k)),
-            ],
-            out_specs=[
-                pl.BlockSpec((rows_pad, 16 * tile_kw), lambda i, k: (0, i)),
-                pl.BlockSpec((in_rows, 1), lambda i, k: (0, 0)),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((rows_pad, 16 * kwi), jnp.float32),
-                jax.ShapeDtypeStruct((in_rows, 1), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary"),
-            ),
-            cost_estimate=cost,
-            interpret=interpret,
-        ), bcat, zq_other, cvp)
-        v = vout[:n, 0]
-    else:
-        out = call32(pl.pallas_call(
-            functools.partial(_pmm_tall_kernel, mode=mode),
-            grid=grid,
-            in_specs=[
-                b_spec,
-                pl.BlockSpec((tile_s, tile_kw), lambda i, k: (k, i)),
-            ],
-            out_specs=pl.BlockSpec((rows_pad, 16 * tile_kw),
-                                   lambda i, k: (0, i)),
-            out_shape=jax.ShapeDtypeStruct((rows_pad, 16 * kwi), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            cost_estimate=cost,
-            interpret=interpret,
-        ), bcat, zq_other)
-    ct = out[:n] if mode in ("bf16", "f32") else out[:n] + out[in_rows:in_rows + n]
-    # undo the mask-only decode's 4^m plane factor and restore natural
-    # column order: block i holds (plane m, word t) at i*16*tkw + m*tkw + t;
-    # the natural position is m*kwi + i*tkw + t.
-    scales = jnp.asarray(PLANE_SCALES, ct.dtype).reshape(1, 1, 16, 1)
-    ct = (
-        (ct.reshape(n, ni, 16, tile_kw) * scales)
-        .transpose(0, 2, 1, 3)
-        .reshape(n, 16 * kwi)
-    )
-    return (ct.T, v) if center_vec is not None else ct.T
-
-
-def _pmm_kernel_int8(zq_ref, b_ref, out_ref):
-    """acc += decode_int8(zq) @ b  (int8 x int8 -> int32, EXACT).
-
-    The digit-slice kernel of the exact-f64 path (``packed_matmul_exact``):
-    genotypes {0..3} x digits in [-64, 64] accumulate in int32 with zero
-    rounding while 192 * 16*kw < 2^31.  Per-plane dots overlap the VPU
-    decode of plane m+1 with plane m's MXU pass (the same restructure that
-    sped up the tall and crossprod kernels)."""
-    from .common import _SHIFTS
-
-    k = pl.program_id(1)
-    words = zq_ref[...]
-    tkw = words.shape[1]
-    acc = None
-    for m in range(16):
-        plane = ((words >> _SHIFTS[m]) & 3).astype(jnp.int8)
-        seg = b_ref[m * tkw:(m + 1) * tkw, :].astype(jnp.int8)
-        p = jax.lax.dot_general(
-            plane, seg,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        acc = p if acc is None else acc + p
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[...] = acc
-
-    @pl.when(k != 0)
-    def _acc():
-        out_ref[...] = out_ref[...] + acc
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tile_r", "tile_kw", "interpret"))
-def packed_matmul_int8(
-    zq: jax.Array,
-    b: jax.Array,
-    *,
-    tile_r: int = DEFAULT_TILE_R,
-    tile_kw: int = DEFAULT_TILE_KW,
-    interpret: bool = False,
-) -> jax.Array:
-    """decode(zq) @ b with int8 digit RHS, EXACT int32 accumulation.
-
-    ``b`` is int32-typed (int8 values) [cols <= 16*kw, n]; rows are
-    reordered on device to plane-tile-major (the unscaled analogue of
-    ``_reorder_rhs``) so kernel block k sees the RHS slab matching the
-    decoded columns of packed word tile k."""
+@jax.jit
+def packed_matmul_int8(zq: jax.Array, d: jax.Array) -> jax.Array:
+    """decode(zq) @ d with int8 digit values d [cols <= 16*kw, n] (any
+    integer dtype, |d| <= 127), EXACT int32 accumulation: plain XLA, the
+    packing decoded to int8 one K block at a time and each block run as one
+    int8 x int8 -> int32 dot.  Exact while 192 * 16*kw < 2^31 (genotypes
+    {0..3} x digits in [-64, 64])."""
     rows, kw = zq.shape
-    cols, n = b.shape
+    n = d.shape[1]
     if 192 * 16 * kw >= 2 ** 31:
         raise ValueError(
             f"{16 * kw} genotype columns could overflow the exact int32 "
             "digit accumulator (limit ~11.2M SNPs); chunk the contraction "
             "(packed_matmul_exact does this automatically)")
-    if n > 512:
-        # the [16*tile_kw, n] int32 RHS block cannot shrink below 8 MB at
-        # the minimum tile_kw=128 — chunk the N axis like packed_matmul
-        return jnp.concatenate(
-            [packed_matmul_int8(zq, b[:, j: j + 512], tile_r=tile_r,
-                                tile_kw=tile_kw, interpret=interpret)
-             for j in range(0, n, 512)], axis=1)
-    tile_r = pick_tile(rows, tile_r, 8)
-    tile_kw = pick_tile(kw, tile_kw, 128)
+    bw = min(_DIGIT_BLOCK_WORDS, kw)
+    zqp = pad_words(zq, bw)
+    kwp = zqp.shape[1]
+    d3 = planar_rows(d.astype(jnp.int8), kw, kwp).reshape(16, kwp, n)
 
-    # Mosaic scoped-VMEM budget (see packed_matmul): the int32 RHS block
-    # [16*tkw, n] is the big term; shrink tiles until the padded-N
-    # estimate (+60% staging margin) clears 12 MB
-    npad = -(-n // 128) * 128
+    def step(t, acc):
+        words = jax.lax.dynamic_slice_in_dim(zqp, t * bw, bw, axis=1)
+        rhs = jax.lax.dynamic_slice_in_dim(d3, t * bw, bw, axis=1)
+        return acc + jax.lax.dot_general(
+            decode_planar16(words, jnp.int8), rhs.reshape(16 * bw, n),
+            dimension_numbers=(((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.int32)
 
-    def est(tr, tkw):
-        return 1.6 * (tr * tkw * 4 + 16 * tkw * npad * 4) + 2 * tr * npad * 4
-
-    while (est(tile_r, tile_kw) > 12 * 2**20
-           and tile_kw // 2 >= 128 and kw % (tile_kw // 2) == 0):
-        tile_kw //= 2
-    while (est(tile_r, tile_kw) > 12 * 2**20
-           and tile_r // 2 >= 256 and rows % (tile_r // 2) == 0):
-        tile_r //= 2
-    nk = kw // tile_kw
-    bpad = jnp.zeros((16 * kw, n), jnp.int32).at[:cols].set(b)
-    bre = (bpad.reshape(16, nk, tile_kw, n)
-           .transpose(1, 0, 2, 3).reshape(16 * kw, n))
-    grid = (rows // tile_r, nk)
-    cost = pl.CostEstimate(
-        flops=2 * rows * 16 * kw * n,
-        bytes_accessed=rows * kw * 4 + 16 * kw * n * 4 * (rows // tile_r)
-        + rows * n * 4,
-        transcendentals=0,
-    )
-    return call32(pl.pallas_call(
-        _pmm_kernel_int8,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_r, tile_kw), lambda r, k: (r, k)),
-            pl.BlockSpec((16 * tile_kw, n), lambda r, k: (k, 0)),
-        ],
-        out_specs=pl.BlockSpec((tile_r, n), lambda r, k: (r, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, n), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=cost,
-        interpret=interpret,
-    ), zq, bre)
+    return jax.lax.fori_loop(0, kwp // bw, step,
+                             jnp.zeros((rows, n), jnp.int32))
 
 
 def packed_matmul_exact(
@@ -735,28 +259,23 @@ def packed_matmul_exact(
     b,
     *,
     digits: int = 8,
-    tile_r: int = DEFAULT_TILE_R,
-    tile_kw: int = DEFAULT_TILE_KW,
-    interpret: Optional[bool] = None,
     as_numpy: bool = True,
     _kw_cap: int = 2 ** 19,
 ):
     """decode(zq) @ B to f64-GRADE accuracy via integer-digit splitting —
-    the Ozaki-scheme idea mapped to the int8 MXU.
+    the Ozaki-scheme idea mapped to exact int8 products.
 
     Each RHS column is scaled by a power of two to (-1/2, 1/2) and expanded
     in base 2^7 as ``digits`` int8 digit vectors (|digit| <= 64, extracted
     with round-to-nearest so residuals stay in [-1/2, 1/2]).  Every digit
-    slice rides one EXACT int8 x int8 -> int32 MXU pass (2x the bf16 rate),
-    and the int32 partials recombine on host in float64 with power-of-two
-    weights — also exact.  The only error is the base-2^7 truncation of B,
-    ~2^-(7*digits) relative to each column's max (digits=8 -> ~1.4e-17),
-    plus one final f64 rounding per element: genuinely double-precision
-    results from hardware with no f64 unit.  This replaces the reference's
-    double / long-double accumulators (Vector.matrix.D.cc:42-229, CUTLASS
-    f64 SIMT path dgemm_compressed_cuda.h:111-698) at ~4x their bf16-pass
-    cost equivalent (8 digit passes at 2x rate) instead of a ~50x-slower
-    SIMT f64 path.
+    slice rides one EXACT int8 x int8 -> int32 product, and the int32
+    partials recombine on host in float64 with power-of-two weights — also
+    exact.  The only error is the base-2^7 truncation of B, ~2^-(7*digits)
+    relative to each column's max (digits=8 -> ~1.4e-17), plus one final
+    f64 rounding per element.  This replaces the reference's double /
+    long-double accumulators (Vector.matrix.D.cc:42-229, CUTLASS f64 SIMT
+    path dgemm_compressed_cuda.h:111-698).  (Whether the card's own f64
+    units beat this route is not measured yet.)
 
     Host-orchestrated (digit extraction + f64 combine): not usable inside
     jit.  Returns numpy float64 when ``as_numpy`` (default), else a jnp
@@ -766,32 +285,19 @@ def packed_matmul_exact(
 
     if isinstance(b, jax.core.Tracer) or isinstance(zq, jax.core.Tracer):
         raise TypeError(
-            "the exact/f64 tier is host-orchestrated (TPUs have no f64 "
-            "hardware) and cannot run inside jit — call it eagerly, or use "
-            "precision='f32' inside jitted solvers")
-    if interpret is None:
-        interpret = on_cpu()
+            "the exact/f64 tier is host-orchestrated (digit extraction and "
+            "the f64 recombination run in numpy) and cannot run inside jit "
+            "— call it eagerly, or use precision='f32' inside jitted solvers")
     rows, kw = zq.shape
     b64 = np.asarray(b, dtype=np.float64)
     cols, n = b64.shape
-    if n > 512:  # VMEM guard: chunk wide RHS column blocks
-        return np.concatenate(
-            [packed_matmul_exact(zq, b64[:, j: j + 512], digits=digits,
-                                 tile_r=tile_r, tile_kw=tile_kw,
-                                 interpret=interpret, as_numpy=True)
-             for j in range(0, n, 512)], axis=1) if as_numpy else \
-            jnp.concatenate(
-            [jnp.asarray(packed_matmul_exact(
-                zq, b64[:, j: j + 512], digits=digits, tile_r=tile_r,
-                tile_kw=tile_kw, interpret=interpret, as_numpy=True))
-             for j in range(0, n, 512)], axis=1)
     if 192 * 16 * kw >= 2 ** 31 or kw > _kw_cap:
         # contraction too long for one exact int32 accumulation (~11.2M
         # genotype columns): chunk the packed-word axis and sum the exact
         # f64 partials — still exact to one final f64 rounding, preserving
-        # the old f64 tier's unlimited-K contract.  _kw_cap (192*16*2^19 <
-        # 2^31; multiple of 128) is overridable only so tests can exercise
-        # this path at small sizes.
+        # the f64 tier's unlimited-K contract.  _kw_cap (192*16*2^19 <
+        # 2^31) is overridable only so tests can exercise this path at
+        # small sizes.
         kw_cap = min(_kw_cap, 2 ** 19)
         acc = np.zeros((rows, n), np.float64)
         for c0 in range(0, kw, kw_cap):
@@ -803,16 +309,13 @@ def packed_matmul_exact(
             bc = np.zeros((idx.size, n), np.float64)
             valid = idx < cols
             bc[valid] = b64[idx[valid]]
-            acc += packed_matmul_exact(
-                zq[:, c0:c1], bc, digits=digits, tile_r=tile_r,
-                tile_kw=tile_kw, interpret=interpret, as_numpy=True,
-                _kw_cap=kw_cap)
+            acc += packed_matmul_exact(zq[:, c0:c1], bc, digits=digits,
+                                       as_numpy=True, _kw_cap=kw_cap)
         return acc if as_numpy else jnp.asarray(acc)
     absmax = np.max(np.abs(b64), axis=0)
-    # absmax = m * 2^e with m in [0.5, 1)  =>  |b / 2^(e)| < 1 ... use e
-    # such that |x| < 1/2: frexp exponent IS that e (b < 2^e strictly)
+    # frexp exponent e gives |b| < 2^e, hence |b / 2^(e+1)| < 1/2
     e = np.where(absmax > 0, np.frexp(absmax)[1], 0).astype(np.float64)
-    scale = np.exp2(e)                      # |b|/scale in [0, 1) ... < 1
+    scale = np.exp2(e)
     x = b64 / (2.0 * scale)                 # |x| < 1/2
     acc = np.zeros((rows, n), np.float64)
     for j in range(digits):
@@ -820,33 +323,24 @@ def packed_matmul_exact(
         x = x * 128.0 - d                   # residual in [-1/2, 1/2]
         if not d.any():
             continue
-        p = packed_matmul_int8(
-            zq, jnp.asarray(d, np.int32), tile_r=tile_r, tile_kw=tile_kw,
-            interpret=interpret)
+        p = packed_matmul_int8(zq, jnp.asarray(d, jnp.int8))
         acc += np.asarray(p, np.float64) * (
             2.0 * scale * 128.0 ** -(j + 1))[None, :]
     return acc if as_numpy else jnp.asarray(acc)
 
 
-def packed_matmul_f64(
-    zq: jax.Array,
-    b: jax.Array,
-    *,
-    as_numpy: bool = False,
-    **kw_args,
-) -> jax.Array:
-    """The ``precision='f64'`` tier: now a thin wrapper over
-    ``packed_matmul_exact`` (integer-digit splitting, ~1e-16 relative — it
-    superseded the older f32-pair K-chunked scheme whose floor was ~1e-5).
-    Host-orchestrated; see packed_matmul_exact."""
-    kw_args.pop("split", None)
-    kw_args.pop("chunk_kw", None)
-    return packed_matmul_exact(zq, b, as_numpy=as_numpy, **kw_args)
+def packed_matmul_f64(zq: jax.Array, b, *, as_numpy: bool = False):
+    """The ``precision='f64'`` tier: ``packed_matmul_exact`` (integer-digit
+    splitting, ~1e-16 relative).  Host-orchestrated; see there."""
+    return packed_matmul_exact(zq, b, as_numpy=as_numpy)
 
 
 # ---------------------------------------------------------------------------
 # Public op
 # ---------------------------------------------------------------------------
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _resolve_center(center) -> tuple:
     """Normalize the ``center`` argument to (mode, user_vector).
@@ -878,9 +372,6 @@ def dgemm(
     normalize: bool = False,
     precision: str = "fast",
     ignore_missings: bool = True,
-    tile_r: int = DEFAULT_TILE_R,
-    tile_kw: int = DEFAULT_TILE_KW,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """The ``dgemm_compressed`` entry point (reference 5codesAPI.c:98-110)
     with the full centering/normalization semantics of the means wrapper
@@ -899,17 +390,18 @@ def dgemm(
     Vector.matrix.D.cc:213-222): sqrt(2 Σ p(1-p)) over SNP frequencies for
     trans='t' (the reference's gV orientation) and over per-individual
     pseudo-frequencies for trans='n'.
+
+    The epilogue's f32 products run at HIGHEST precision: a GPU would
+    otherwise take them in TF32 (~1e-3), below every tier but bf16.
     """
     trans = trans.lower()
     if trans not in ("n", "t"):
         raise ValueError(f"trans must be 'n' or 't', got {trans!r}")
     if precision not in ("bf16", "fast", "f32", "f64"):
-        # an unknown string would silently fall through to the f32 kernel
-        # — a caller expecting the exact f64 tier must not get ~1e-7
+        # an unknown string must not fall through to some other tier — a
+        # caller expecting the exact f64 tier must not get ~1e-7
         raise ValueError(f"precision must be one of bf16/fast/f32/f64, "
                          f"got {precision!r}")
-    if interpret is None:
-        interpret = on_cpu()
     if b.ndim == 1:
         b = b[:, None]
     mode, user_vec = _resolve_center(center)
@@ -922,131 +414,20 @@ def dgemm(
         raise ValueError(
             f"B has {b.shape[0]} rows, expected {cols} for trans='{trans}'"
         )
-
-    zq_other = g.zq_t if trans == "n" else g.zq_n
     if mode == "colmeans" and g.pseudo_freq is None:
         raise ValueError("colmeans centering needs pseudo_freq")
-    # streamed rows = n for single-pass modes, 2n for the hi/lo split
-    tall_limit = 128 if precision in ("bf16", "f32") else 64
     if precision == "f64":
-        # as_numpy keeps the exact host-f64 recombination: without
-        # jax_enable_x64, jnp.asarray(acc) would quantize the result to f32
-        # and silently degrade the tier to ~5e-8 (measured on v5e) — the
-        # whole epilogue therefore also runs host-side in numpy float64
-        import numpy as np
+        return _dgemm_f64(g, zq, b, trans, rows, mode, center,
+                          normalize, ignore_missings)
 
-        c = packed_matmul_f64(
-            zq, b, tile_r=tile_r, tile_kw=tile_kw, split=True,
-            interpret=interpret, as_numpy=True,
-        )[:rows]
-        bc = np.asarray(b, np.float64)
-        # user centering: take the caller's ORIGINAL vector, not user_vec —
-        # _resolve_center round-tripped that through jnp.asarray, which
-        # quantizes an f64 vector to f32 whenever x64 is off
-        uvec64 = (np.asarray(center, np.float64) if mode == "user" else None)
-        if mode in ("rowmeans", "user"):
-            cvec = (np.asarray(2.0 * g.freq, np.float64)
-                    if mode == "rowmeans" else uvec64)
-            if trans == "n":
-                c = c - (cvec @ bc)[None, :]
-            else:
-                c = c - cvec[:, None] * bc.sum(axis=0)[None, :]
-        elif mode == "colmeans":
-            pvec = np.asarray(2.0 * g.pseudo_freq, np.float64)
-            if trans == "n":
-                c = c - pvec[:rows, None] * bc.sum(axis=0)[None, :]
-            else:
-                c = c - (pvec @ bc)[None, :]
-        if mode != "none" and not ignore_missings and g.miss_rows_n is not None:
-            mi = np.asarray(g.miss_rows_n)
-            ms = np.asarray(g.miss_cols_n)
-            if mode == "colmeans":
-                cent = np.asarray(2.0 * g.pseudo_freq, np.float64)[mi]
-            elif mode == "user":
-                cent = uvec64[ms]
-            else:
-                cent = np.asarray(2.0 * g.freq, np.float64)[ms]
-            if trans == "n":
-                np.add.at(c, mi, cent[:, None] * bc[ms])
-            else:
-                np.add.at(c, ms, cent[:, None] * bc[mi])
-        if normalize:
-            s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
-            c = c / np.sqrt(np.asarray(s2, np.float64))
-        return c
-    elif (precision in ("fast", "bf16", "f32") and b.shape[1] <= tall_limit
-          and b.shape[0] <= zq_other.shape[0]):
-        # skinny RHS: tall transposed schedule (see _pmm_tall_kernel).
-        # Tile overrides carry over: tile_r -> tile_s (first grid axis,
-        # same 1024 default), tile_kw -> tile_kw (packed-word tile).
-        # (An in-kernel fused centering-reduction variant was measured
-        # SLOWER than the separate XLA epilogue — +32 vs +22 us — and was
-        # dropped; see git history for _pmm_tall_kernel_fb.)
-        tall_mode = {"fast": "split", "bf16": "bf16", "f32": "f32"}[precision]
-        centered_in_kernel = False
-        if mode != "none" and tall_mode == "split" and cols >= 65536:
-            # FUSED centering (round 5): the rank-1 epilogue needs one
-            # contraction-side reduction of B (cᵀB for per-SNP modes /
-            # 1ᵀB for the colsum modes) — computing it inside the kernel
-            # from the RHS block already in VMEM saves a full O(K·n) HBM
-            # pass over B (~16% of the many_snps step).  Gated to large
-            # contractions: below ~64K SNPs the saved pass is noise, and
-            # the extra executable per (shape, mode) combo doubled the
-            # test suite's compile count (which intermittently segfaulted
-            # jaxlib's CPU compile pipeline late in the run, r5)
-            if trans == "n":
-                per_row = mode in ("rowmeans", "user")   # per-SNP centers
-            else:
-                per_row = mode == "colmeans"             # per-indiv centers
-            if per_row:
-                cv = (2.0 * g.freq if mode == "rowmeans"
-                      else 2.0 * g.pseudo_freq if mode == "colmeans"
-                      else user_vec)
-            else:
-                cv = jnp.ones((cols,), jnp.float32)
-            c, v = packed_matmul_tall(zq_other, b, mode=tall_mode,
-                                      tile_s=tile_r, tile_kw=tile_kw,
-                                      interpret=interpret,
-                                      center_vec=cv)
-            c = c[:rows]
-            if per_row:
-                c = c - v[None, :].astype(c.dtype)       # v = cᵀB
-            else:                                        # v = 1ᵀB (colsum)
-                ovec = (2.0 * g.pseudo_freq if mode == "colmeans"
-                        else 2.0 * g.freq if mode == "rowmeans"
-                        else user_vec)
-                c = c - ovec[:rows, None].astype(c.dtype) * v[None, :].astype(
-                    c.dtype)
-            centered_in_kernel = True
-        else:
-            c = packed_matmul_tall(zq_other, b, mode=tall_mode,
-                                   tile_s=tile_r, tile_kw=tile_kw,
-                                   interpret=interpret)
-            c = c[:rows]
-        if centered_in_kernel:
-            if mode != "none" and not ignore_missings \
-                    and g.miss_rows_n is not None:
-                c = _missing_correction(g, b.astype(c.dtype), c, trans, mode,
-                                        user_vec)
-            if normalize:
-                s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
-                c = c / jnp.sqrt(s2).astype(c.dtype)
-            return c
-    else:
-        c = packed_matmul(
-            zq, b, tile_r=tile_r, tile_kw=tile_kw,
-            split=(precision == "fast"),
-            single_bf16=(precision == "bf16"), interpret=interpret,
-        )
-        c = c[:rows]
-
+    c = packed_matmul(zq, b, precision=precision)[:rows]
     if mode != "none":
         bc = b.astype(c.dtype)
         if mode in ("rowmeans", "user"):
             cvec = (2.0 * g.freq if mode == "rowmeans" else user_vec)
             cvec = cvec.astype(c.dtype)  # per-SNP centers
             if trans == "n":
-                c = c - (cvec @ bc)[None, :]
+                c = c - jnp.dot(cvec, bc, precision=_HIGHEST)[None, :]
             else:
                 c = c - cvec[:, None] * jnp.sum(bc, axis=0)[None, :]
         else:  # colmeans: per-individual centers
@@ -1054,13 +435,58 @@ def dgemm(
             if trans == "n":
                 c = c - pvec[: rows, None] * jnp.sum(bc, axis=0)[None, :]
             else:
-                c = c - (pvec @ bc)[None, :]
+                c = c - jnp.dot(pvec, bc, precision=_HIGHEST)[None, :]
     if mode != "none" and not ignore_missings and g.miss_rows_n is not None:
         c = _missing_correction(g, b.astype(c.dtype), c, trans, mode,
                                 user_vec)
     if normalize:
         s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
         c = c / jnp.sqrt(s2).astype(c.dtype)
+    return c
+
+
+def _dgemm_f64(g, zq, b, trans, rows, mode, center, normalize,
+               ignore_missings):
+    """The f64 tier of :func:`dgemm`, epilogue included, in host numpy
+    float64: without jax_enable_x64, a jnp result would be quantized to f32
+    and silently degrade the tier to ~5e-8."""
+    import numpy as np
+
+    c = packed_matmul_f64(zq, b, as_numpy=True)[:rows]
+    bc = np.asarray(b, np.float64)
+    # user centering: take the caller's ORIGINAL vector — _resolve_center
+    # round-tripped it through jnp.asarray, which quantizes an f64 vector
+    # to f32 whenever x64 is off
+    uvec64 = (np.asarray(center, np.float64) if mode == "user" else None)
+    if mode in ("rowmeans", "user"):
+        cvec = (np.asarray(2.0 * g.freq, np.float64)
+                if mode == "rowmeans" else uvec64)
+        if trans == "n":
+            c = c - (cvec @ bc)[None, :]
+        else:
+            c = c - cvec[:, None] * bc.sum(axis=0)[None, :]
+    elif mode == "colmeans":
+        pvec = np.asarray(2.0 * g.pseudo_freq, np.float64)
+        if trans == "n":
+            c = c - pvec[:rows, None] * bc.sum(axis=0)[None, :]
+        else:
+            c = c - (pvec @ bc)[None, :]
+    if mode != "none" and not ignore_missings and g.miss_rows_n is not None:
+        mi = np.asarray(g.miss_rows_n)
+        ms = np.asarray(g.miss_cols_n)
+        if mode == "colmeans":
+            cent = np.asarray(2.0 * g.pseudo_freq, np.float64)[mi]
+        elif mode == "user":
+            cent = uvec64[ms]
+        else:
+            cent = np.asarray(2.0 * g.freq, np.float64)[ms]
+        if trans == "n":
+            np.add.at(c, mi, cent[:, None] * bc[ms])
+        else:
+            np.add.at(c, ms, cent[:, None] * bc[mi])
+    if normalize:
+        s2 = g.sigma2 if trans == "t" else g.pseudo_sigma2
+        c = c / np.sqrt(np.asarray(s2, np.float64))
     return c
 
 

@@ -5,32 +5,31 @@ by the register-blocked CSR kernel ``sparseTGeno`` (src/miraculix/
 plinkUint.cc:352-479).  Semantics (tests/sparse_plink/test_sparse_plink.f90):
 S is a CSR matrix [n_idx, indiv]; the op returns C [n_idx, snps] = S @ Z.
 
-TPU-native strategy, two regimes:
+Strategy, two regimes:
 
 - moderate ``n_idx`` (fits a dense RHS): the contraction S·Z runs over
   individuals, exactly the axis our transposed packed buffer contracts — so
-  C = (Zᵀ · Sᵀ)ᵀ is ONE call of the packed Pallas matmul with the
-  (densified) sparse transpose as the dense RHS.  The MXU eats structured
-  sparsity for free at these densities.
+  C = (Zᵀ · Sᵀ)ᵀ is ONE call of the packed matmul kernel with the
+  (densified) sparse transpose as the dense RHS.  The tensor cores eat
+  structured sparsity for free at these densities.
 - MiXBLUP scale (``n_idx`` ~ 1e6, pedigree incidence matrices): densifying S
   explodes; the O(nnz) path gathers the referenced PACKED genotype rows,
   decodes them in-register, and scatter-adds ``v · Z[row]`` into the output
   — a lax.scan over nnz chunks, nothing bigger than one chunk plus the
-  [n_idx, snps] result ever resident.  This is the TPU analogue of the
+  [n_idx, snps] result ever resident.  This is the device analogue of the
   reference's register-blocked CSR kernel (plinkUint.cc:352-479), with the
   register blocks replaced by chunk-wide vector gathers.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..geno import GenoMatrix
-from .common import decode_planar16, on_cpu
+from .common import decode_planar16
 from .dgemm import packed_matmul
 
 
@@ -70,8 +69,8 @@ def _csr_flat(row_ptr, col_idx, vals, n_rows, index_base):
 def _segsum_apply(zq, out_rows, gather_rows, vals, *, n_idx, chunk):
     """acc[out_rows] += vals * decode(zq[gather_rows]) over nnz chunks.
 
-    One scan step gathers ``chunk`` packed genotype rows, decodes them on
-    the VPU, and scatter-adds the scaled rows — O(nnz · snps) work,
+    One scan step gathers ``chunk`` packed genotype rows, decodes them,
+    and scatter-adds the scaled rows — O(nnz · snps) work,
     O(chunk · snps + n_idx · snps) memory.  Padding entries carry val=0 and
     index 0, contributing nothing.
     """
@@ -151,7 +150,6 @@ def sparse_times_geno(
     index_base: int = 1,
     precision: str = "f32",
     method: str = "auto",
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """C = op(S) @ op(Z):
 
@@ -164,20 +162,18 @@ def sparse_times_geno(
 
     Matches ``sparse_times_plink(transS, transC, ...)``
     (5codesAPI.c:135-157); no centering (the reference path has none).
-    ``precision`` defaults to "f32" (HIGHEST-precision matmul, ~1e-7
-    relative) because the reference's sparseTGeno kernel accumulates in
-    exact double (plinkUint.cc:352-479); "fast" (bf16-split) and "f64"
-    (chunked float64 outer accumulation) are also accepted.
+    ``precision`` defaults to "f32" (all 24 bits of S, ~1e-7 relative)
+    because the reference's sparseTGeno kernel accumulates in exact double
+    (plinkUint.cc:352-479); "fast" (bf16-split) and "f64" (exact int8
+    digits, float64 recombination) are also accepted.
 
-    ``method``: "dense" forces the MXU path (densified S), "segsum" the
+    ``method``: "dense" forces the packed-matmul path (densified S), "segsum" the
     O(nnz) gather path (:func:`sparse_times_geno_segsum`; f32
     accumulation), "auto" picks segsum once densifying S would dominate
     (n_idx beyond a few thousand — pedigree incidence scale) — but only
     at the default precision="f32": an explicit "fast"/"f64" request
     keeps the dense path, and method="segsum" with a non-f32 tier raises.
     """
-    if interpret is None:
-        interpret = on_cpu()
     tg = trans_geno.lower()
     ts = trans_sparse.lower()
     # the segsum path accumulates in f32 scatter-adds: 'auto' only takes
@@ -210,22 +206,11 @@ def sparse_times_geno(
     # output axis and whose packed axis is `contract` is exactly the other
     # orientation — one packed matmul, then transpose.
     zq_other = g.zq_t if tg == "n" else g.zq_n
-    stj = jnp.asarray(st, jnp.float32)
     if precision == "f64":
         from .dgemm import packed_matmul_f64
 
-        out = packed_matmul_f64(zq_other, stj, interpret=interpret)
+        out = packed_matmul_f64(zq_other, st)
         return out[:out_cols].T
-    # tall schedule wants the packing whose ROWS are the contraction axis
-    # and whose DECODED COLUMNS are the output axis — the same-orientation
-    # buffer (the opposite of the wide schedule's input)
-    zq_same = g.zq_n if tg == "n" else g.zq_t
-    if precision == "f32" and n_idx <= 128 and stj.shape[0] <= zq_same.shape[0]:
-        from .dgemm import packed_matmul_tall
-
-        out = packed_matmul_tall(zq_same, stj, mode="f32",
-                                 interpret=interpret)
-        return out[:out_cols].T
-    out = packed_matmul(zq_other, stj, split=(precision == "fast"),
-                        interpret=interpret)
+    out = packed_matmul(zq_other, jnp.asarray(st, jnp.float32),
+                        precision=precision)
     return out[:out_cols].T  # [n_idx, out_cols]

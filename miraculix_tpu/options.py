@@ -21,17 +21,17 @@ class Options:
     Fields map 1:1 to ``setOptions_compressed(use_gpu, cores, floatLoop,
     meanSubstract, ignore_missings, do_not_center, do_normalize,
     use_miraculix_freq, variant, print_details)`` — reference
-    src/miraculix/5codesAPI.c:43-70 — reinterpreted for TPU:
+    src/miraculix/5codesAPI.c:43-70 — reinterpreted here (``use_gpu`` is
+    accepted by the facade for parity and ignored: kernels run on whatever
+    backend jax selected):
 
-    - use_tpu: use the Pallas/TPU compute path (falls back to an interpreted
-      kernel on CPU backends).  Replaces ``use_gpu``.
-    - precision: "fast"  = bf16-split RHS, f32 accumulate (default; exact for
-                  the genotype operand, ~f32 overall),
-                 "bf16"  = ONE bf16 pass, ~2e-3 relative (2x the fast tier's
-                  speed; for iterative solvers and screening),
-                 "f32"   = f32 operands, HIGHEST matmul precision,
-                 "f64"   = K-chunked float64 outer accumulation on top of the
-                  fast kernel (for 1e-4-grade tolerances on >100k-SNP axes).
+    - precision: "fast"  = B split into two bf16 pieces, f32 accumulate
+                  (default; exact for the genotype operand, ~f32 overall),
+                 "bf16"  = ONE bf16 piece, ~2e-3 relative (for iterative
+                  solvers and screening),
+                 "f32"   = three bf16 pieces: all 24 bits of B,
+                 "f64"   = exact int8-digit products recombined in host
+                  float64 (~1e-15 relative).
       Replaces ``floatLoop`` (0 == doubles; reference 5codesChar.cc:188-204).
     - ignore_missings: missings enter as genotype 0 with NO post-correction
       (the reference default in the Julia binding, dgemm_compressed.jl:45).
@@ -45,14 +45,12 @@ class Options:
       pseudo-frequencies for 'n').
     - use_internal_freq: compute allele frequencies from the data instead of
       requiring externally supplied ones (``use_miraculix_freq``).
-    - variant: kernel tile selector; 0 = auto.  Kept for API parity with the
-      reference's 32/128/256/512 SIMD-width variants (options.h:113-119);
-      on TPU it selects (TILE_ROWS, TILE_KW) presets.
+    - variant: accepted for API parity with the reference's 32/128/256/512
+      SIMD-width variants (options.h:113-119); it selects nothing.
     - verbose: print details (``print_details``).
     """
 
-    use_tpu: bool = True
-    cores: int = 0                      # accepted for parity; TPU ignores it
+    cores: int = 0                      # accepted for parity; unused
     precision: str = "fast"             # "fast" | "f32" | "f64"
     mean_subtract: bool = False         # meanSubstract numerical trick
     ignore_missings: bool = True

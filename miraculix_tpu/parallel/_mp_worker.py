@@ -1,5 +1,5 @@
 """Multi-PROCESS distributed drive: the process-boundary proof for the
-parallel layer (VERDICT r3 Missing #1).
+parallel layer.
 
 Each invocation is ONE process of an N-process jax.distributed CPU cluster
 (4 virtual devices per process).  The checklist crosses every process

@@ -1,13 +1,13 @@
-"""Multi-chip / multi-host execution: SNP-sharded genotype linear algebra.
+"""Multi-card / multi-host execution: SNP-sharded genotype linear algebra.
 
 The reference is a single-node library (one GPU chosen by env var,
 src/cuda/cuda_utils.cu:188-248; OpenMP threads on CPU) — its only "model
 parallelism" is the K-axis column-blocking of the 5codes GEMM with a private
 accumulator per block and a tree reduction (src/miraculix/5codesIntern.h:
-57-99,321-342).  This module is the distributed generalization the TPU build
+57-99,321-342).  This module is the distributed generalization this package
 adds as a first-class layer: the SNP axis is sharded across a
 ``jax.sharding.Mesh``, every device packs/owns its local planar16 shard, and
-partial products merge with ``psum`` / ``psum_scatter`` over ICI.
+partial products merge with ``psum`` / ``psum_scatter`` collectives.
 
 Sharding layout (mesh axis "k" over the SNP dimension):
 
@@ -38,19 +38,12 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..io import codec
-from ..ops.common import on_cpu
-from ..ops.dgemm import packed_matmul, packed_matmul_tall
+from ..ops.dgemm import packed_matmul
 from ..ops.grm import packed_crossprod
 from ..solve.cg import CGResult
 
 
-def _local_mm(zq_direct, zq_other, b, interpret, split=True):
-    """Local-shard packed matmul choosing the tall transposed schedule for
-    skinny RHS (n <= 64; see ops.dgemm._pmm_tall_kernel) — CG solves carry
-    one-to-few RHS columns, exactly the tall case."""
-    if split and b.shape[1] <= 64 and b.shape[0] <= zq_other.shape[0]:
-        return packed_matmul_tall(zq_other, b, interpret=interpret)
-    return packed_matmul(zq_direct, b, split=split, interpret=interpret)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "k") -> Mesh:
@@ -238,8 +231,7 @@ def sharded_dgemm(
     trans: str = "n",
     center: bool = True,
     mesh: Optional[Mesh] = None,
-    split: bool = True,
-    interpret: Optional[bool] = None,
+    precision: str = "fast",
 ) -> jax.Array:
     """dgemm_compressed over the mesh.
 
@@ -247,8 +239,6 @@ def sharded_dgemm(
     't': B [indiv, n] replicated, C [snps, n] sharded by rows (no psum).
     """
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
     trans = trans.lower()
     if b.ndim == 1:
@@ -257,22 +247,23 @@ def sharded_dgemm(
     if trans == "n":
         b_pad = _pad_rows(b, sg.zq_t.shape[0])
 
-        def body(zq_n_local, zq_t_local, b_local, f_local):
-            c = _local_mm(zq_n_local, zq_t_local, b_local, interpret,
-                          split=split)
+        def body(zq_n_local, b_local, f_local):
+            c = packed_matmul(zq_n_local, b_local, precision=precision)
             if center:
-                c = c - 2.0 * (f_local.astype(c.dtype) @ b_local.astype(c.dtype))[None, :]
+                c = c - 2.0 * jnp.dot(f_local.astype(c.dtype),
+                                      b_local.astype(c.dtype),
+                                      precision=_HIGHEST)[None, :]
             return jax.lax.psum(c, ax)
 
         out = jax.shard_map(
             body, mesh=mesh,
-            in_specs=(P(None, ax), P(ax, None), P(ax, None), P(ax)),
+            in_specs=(P(None, ax), P(ax, None), P(ax)),
             out_specs=P(None, None), check_vma=False,
-        )(sg.zq_n, sg.zq_t, b_pad, sg.freq)
+        )(sg.zq_n, b_pad, sg.freq)
         return out[: sg.indiv]
 
-    def body_t(zq_t_local, zq_n_local, b_rep, f_local):
-        c = _local_mm(zq_t_local, zq_n_local, b_rep, interpret, split=split)
+    def body_t(zq_t_local, b_rep, f_local):
+        c = packed_matmul(zq_t_local, b_rep, precision=precision)
         if center:
             colsum = jnp.sum(b_rep.astype(c.dtype), axis=0)
             c = c - 2.0 * f_local.astype(c.dtype)[:, None] * colsum[None, :]
@@ -280,9 +271,9 @@ def sharded_dgemm(
 
     out = jax.shard_map(
         body_t, mesh=mesh,
-        in_specs=(P(ax, None), P(None, ax), P(None, None), P(ax)),
+        in_specs=(P(ax, None), P(None, None), P(ax)),
         out_specs=P(ax, None), check_vma=False,
-    )(sg.zq_t, sg.zq_n, b, sg.freq)
+    )(sg.zq_t, b, sg.freq)
     return out[: sg.snps]
 
 
@@ -291,15 +282,12 @@ def sharded_grm(
     scale: bool = True,
     scatter: bool = False,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """GRM over the mesh: local integer crossproduct of each SNP shard, then
     a psum merge (``scatter=True`` uses psum_scatter and returns the GRM
     row-sharded over the mesh — the layout a distributed solver wants; the
     rows beyond indiv are zero padding)."""
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
     n = sg.indiv
     if 4 * sg.snps >= 2 ** 31:
@@ -312,7 +300,7 @@ def sharded_grm(
             "axis and sum f64 partials")
 
     def body(zq_local):
-        m = packed_crossprod(zq_local, interpret=interpret)
+        m = packed_crossprod(zq_local)
         if scatter:
             return jax.lax.psum_scatter(m, ax, scatter_dimension=0, tiled=True)
         return jax.lax.psum(m, ax)
@@ -328,8 +316,8 @@ def sharded_grm(
     # the replicated and the row-sharded (scatter) layout because padded
     # rows/cols of the raw crossproduct are exactly zero.
     mask = (jnp.arange(m.shape[1]) < n).astype(m.dtype)
-    colsum = (m @ mask)            # [rows] row sums over real columns
-    total_vec = mask @ m           # [cols]; total = sum over real rows
+    colsum = jnp.dot(m, mask, precision=_HIGHEST)      # [rows] real-col sums
+    total_vec = jnp.dot(mask, m, precision=_HIGHEST)   # [cols] real-row sums
     total = jnp.sum(total_vec * mask)
     m = m - total_vec[None, :] / n - colsum[:, None] / n + total / (n * n)
     if scale:
@@ -345,7 +333,6 @@ def sharded_grm_matvec(
     v: jax.Array,
     center: bool = True,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
     snp_weights: Optional[jax.Array] = None,
 ) -> jax.Array:
     """G·v in ONE shard_map: 't' pass (row-parallel) chains directly into the
@@ -357,23 +344,21 @@ def sharded_grm_matvec(
     this is the exact LOCO operator with NO repacking (the masked rows of
     the 't' output vanish from both the product and its centering term)."""
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
     if v.ndim == 1:
         v = v[:, None]
 
     def body(zq_t_local, zq_n_local, f_local, v_rep, w_local):
-        zv = _local_mm(zq_t_local, zq_n_local, v_rep, interpret)
+        zv = packed_matmul(zq_t_local, v_rep)
         fl = f_local.astype(zv.dtype)
         if center:
             colsum = jnp.sum(v_rep.astype(zv.dtype), axis=0)
             zv = zv - 2.0 * fl[:, None] * colsum[None, :]
         if w_local is not None:
             zv = zv * w_local.astype(zv.dtype)[:, None]
-        gv = _local_mm(zq_n_local, zq_t_local, zv, interpret)
+        gv = packed_matmul(zq_n_local, zv)
         if center:
-            gv = gv - 2.0 * (fl @ zv)[None, :]
+            gv = gv - 2.0 * jnp.dot(fl, zv, precision=_HIGHEST)[None, :]
         return jax.lax.psum(gv, ax)
 
     if snp_weights is None:
@@ -416,7 +401,6 @@ def sharded_indicator2_dgemm_t(
     sg: ShardedGeno,
     b: jax.Array,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """I₂ᵀ b with I₂ the packed genotype==2 indicator panel
     (ops.common.packed_indicator2) — row-parallel like the ordinary 't'
@@ -425,21 +409,18 @@ def sharded_indicator2_dgemm_t(
     from ..ops.common import packed_indicator2
 
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
     if b.ndim == 1:
         b = b[:, None]
 
-    def body(zq_t_local, zq_n_local, b_rep):
-        return _local_mm(packed_indicator2(zq_t_local),
-                         packed_indicator2(zq_n_local), b_rep, interpret)
+    def body(zq_t_local, b_rep):
+        return packed_matmul(packed_indicator2(zq_t_local), b_rep)
 
     out = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P(ax, None), P(None, ax), P(None, None)),
+        in_specs=(P(ax, None), P(None, None)),
         out_specs=P(ax, None), check_vma=False,
-    )(sg.zq_t, sg.zq_n, b)
+    )(sg.zq_t, b)
     return out[: sg.snps]
 
 
@@ -447,7 +428,6 @@ def sharded_weighted_grm_diag(
     sg: ShardedGeno,
     snp_weights: jax.Array,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """diag of the SNP-weighted centered operator, exactly:
 
@@ -457,33 +437,29 @@ def sharded_weighted_grm_diag(
 
     with I₂ the packed genotype==2 indicator (``packed_indicator2`` is a
     pure bit transform of the planar16 words, so its product rides the
-    same MXU kernels).  Three skinny 'n'-type local matmuls + one psum —
+    same packed kernel).  Three skinny 'n'-type local matmuls + one psum —
     the Jacobi preconditioner of the sharded LOCO solver."""
     from ..ops.common import packed_indicator2
 
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
 
-    def body(zq_n_local, zq_t_local, f_local, w_local):
+    def body(zq_n_local, f_local, w_local):
         wl = w_local.astype(jnp.float32)
         fl = f_local.astype(jnp.float32)
         rhs = jnp.stack([wl, wl * fl], axis=1)              # [spd, 2]
         rows = zq_n_local.shape[0]
-        zw = _local_mm(zq_n_local, zq_t_local, rhs, interpret)[:rows]
-        iw = _local_mm(packed_indicator2(zq_n_local),
-                       packed_indicator2(zq_t_local), wl[:, None],
-                       interpret)[:rows]
+        zw = packed_matmul(zq_n_local, rhs)[:rows]
+        iw = packed_matmul(packed_indicator2(zq_n_local), wl[:, None])[:rows]
         const = jnp.sum(wl * fl * fl)
         d = zw[:, 0] + 2.0 * iw[:, 0] - 4.0 * zw[:, 1] + 4.0 * const
         return jax.lax.psum(d, ax)
 
     out = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P(None, ax), P(ax, None), P(ax), P(ax)),
+        in_specs=(P(None, ax), P(ax), P(ax)),
         out_specs=P(None), check_vma=False,
-    )(sg.zq_n, sg.zq_t, sg.freq, snp_weights)
+    )(sg.zq_n, sg.freq, snp_weights)
     return out[: sg.indiv]
 
 
@@ -491,7 +467,6 @@ def sharded_grm_diag(
     sg: ShardedGeno,
     center: bool = True,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """diag(Z_c Z_cᵀ) across the mesh, exactly (solve.grm_diag distributed):
     Σ z² and Σ f z are additive over each device's SNP shard, merged with
@@ -499,27 +474,22 @@ def sharded_grm_diag(
     from ..ops.common import packed_row_sq_stats
 
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ax = sg.axis
     f_pad = _pad_rows(sg.freq[:, None], sg.zq_t.shape[0])
 
-    def body(zq_n_local, zq_t_local, f_pad_local, f_local):
+    def body(zq_n_local, f_pad_local, f_local):
         d = packed_row_sq_stats(zq_n_local)
         if center:
-            # tall-schedule output is padded to 16*kw_indiv rows — slice
-            # back to the zq_n row padding before combining
-            fz = _local_mm(zq_n_local, zq_t_local, f_pad_local,
-                           interpret)[: zq_n_local.shape[0], 0]
+            fz = packed_matmul(zq_n_local, f_pad_local)[:, 0]
             fl = f_local.astype(jnp.float32)
             d = d - 4.0 * fz + 4.0 * jnp.sum(fl * fl)
         return jax.lax.psum(d, ax)
 
     out = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(P(None, ax), P(ax, None), P(ax, None), P(ax)),
+        in_specs=(P(None, ax), P(ax, None), P(ax)),
         out_specs=P(None), check_vma=False,
-    )(sg.zq_n, sg.zq_t, f_pad, sg.freq)
+    )(sg.zq_n, f_pad, sg.freq)
     return out[: sg.indiv]
 
 
@@ -542,13 +512,13 @@ def sharded_cg_solve(
     solve.grm_cg_solve's flag."""
     mesh = mesh or _mesh_of(sg)  # resolve outside jit (tracers lack .sharding)
     return _cg_jit(sg, b, jnp.float32(lam), center, tol, maxiter, mesh,
-                   on_cpu(), precondition, scale)
+                   precondition, scale)
 
 
 @functools.partial(jax.jit, static_argnames=("center", "tol",
-                                             "maxiter", "mesh", "interpret",
+                                             "maxiter", "mesh",
                                              "precondition", "scale"))
-def _cg_jit(sg, b, lam, center, tol, maxiter, mesh, interpret,
+def _cg_jit(sg, b, lam, center, tol, maxiter, mesh,
             precondition=False, scale=False) -> CGResult:
     # lam is TRACED: REML sweeps a fresh lambda every AI iteration, and a
     # static lam recompiled the whole distributed CG per value (the
@@ -558,21 +528,18 @@ def _cg_jit(sg, b, lam, center, tol, maxiter, mesh, interpret,
     s2 = sg.sigma2 if scale else jnp.float32(1.0)
 
     def op(v):
-        gv = sharded_grm_matvec(sg, v, center=center, mesh=mesh,
-                                interpret=interpret)
+        gv = sharded_grm_matvec(sg, v, center=center, mesh=mesh)
         return gv / s2 + lam * v
 
     minv = None
     if precondition:
         from ..solve.cg import jacobi_minv
 
-        minv = jacobi_minv(sharded_grm_diag(sg, center=center, mesh=mesh,
-                                            interpret=interpret) / s2 + lam)
+        minv = jacobi_minv(sharded_grm_diag(sg, center=center, mesh=mesh) / s2 + lam)
     return cg(op, b, tol=tol, maxiter=maxiter, minv=minv)
 
 
-@functools.partial(jax.jit, static_argnames=("tol", "maxiter", "mesh",
-                                             "interpret"))
+@functools.partial(jax.jit, static_argnames=("tol", "maxiter", "mesh"))
 def sharded_loco_cg_solve(
     sg: ShardedGeno,
     snp_weights: jax.Array,
@@ -583,7 +550,6 @@ def sharded_loco_cg_solve(
     tol: float,
     maxiter: int,
     mesh: Mesh,
-    interpret: bool = False,
 ) -> CGResult:
     """Distributed LOCO solve (G_w / s2_loco + lam I) x = b with G_w the
     off-chromosome-masked operator (``snp_weights`` = 0/1 mask, see
@@ -596,13 +562,11 @@ def sharded_loco_cg_solve(
 
     def op(v):
         gv = sharded_grm_matvec(sg, v, center=True, mesh=mesh,
-                                interpret=interpret,
                                 snp_weights=snp_weights)
         return gv / s2_loco + lam * v
 
     minv = jacobi_minv(
-        sharded_weighted_grm_diag(sg, snp_weights, mesh=mesh,
-                                  interpret=interpret) / s2_loco + lam)
+        sharded_weighted_grm_diag(sg, snp_weights, mesh=mesh) / s2_loco + lam)
     return cg(op, b, tol=tol, maxiter=maxiter, minv=minv)
 
 
@@ -683,11 +647,10 @@ def init_distributed(coordinator_address: str = None,
                      num_processes: int = None,
                      process_id: int = None) -> int:
     """Multi-host bootstrap: initialize jax.distributed and return this
-    process's index.  On a TPU pod slice the arguments auto-detect from the
-    environment; on CPU/GPU clusters pass them explicitly.  Pair with
-    shard_genotypes_from_bed (each process then reads only its own SNP
-    ranges) — the TPU-native replacement for the distribution layer the
-    reference never had (SURVEY.md §2.5)."""
+    process's index.  On CPU/GPU clusters pass the arguments explicitly.
+    Pair with shard_genotypes_from_bed (each process then reads only its
+    own SNP ranges) — the distribution layer the reference never had
+    (SURVEY.md §2.5)."""
     import jax
 
     kwargs = {}

@@ -14,7 +14,7 @@ layer shards both over a Mesh(("i", "k")):
   row-sharded over "k".
 - The GBLUP CG operator chains 't' into 'n' with exactly two psums per
   iteration and every vector stays sharded — nothing is ever replicated.
-- GRM: all_gather of the row blocks along "i" (ring over ICI), one
+- GRM: all_gather of the row blocks along "i", one
   rectangular int8 crossproduct per device, psum over "k" -> G row-sharded
   over "i".
 
@@ -33,10 +33,10 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..io import codec
-from ..ops.common import on_cpu
 from ..ops.grm import packed_crossprod_rect
 from ..solve.cg import CGResult, cg
-from .sharded import _local_mm, _round_up
+from ..ops.dgemm import packed_matmul
+from .sharded import _round_up
 
 
 def make_mesh_2d(
@@ -158,7 +158,6 @@ def sharded_dgemm_2d(
     trans: str = "n",
     center: bool = True,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """dgemm over the 2D mesh.  Inputs/outputs are ROW-SHARDED (zero-padded
     to di*ipd / dk*spd rows):
@@ -170,28 +169,27 @@ def sharded_dgemm_2d(
     slice ``[:indiv]`` / ``[:snps]`` after fetching.
     """
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ai, ak = sg.axes
     trans = trans.lower()
     if b.ndim == 1:
         b = b[:, None]
 
     if trans == "n":
-        def body(zq_n_l, zq_t_l, b_l, f_l):
-            c = _local_mm(zq_n_l, zq_t_l, b_l, interpret)
+        def body(zq_n_l, b_l, f_l):
+            c = packed_matmul(zq_n_l, b_l)
             if center:
-                c = c - 2.0 * (f_l.astype(c.dtype) @ b_l.astype(c.dtype))[None, :]
+                c = c - 2.0 * jnp.dot(f_l.astype(c.dtype), b_l.astype(c.dtype),
+                                precision=jax.lax.Precision.HIGHEST)[None, :]
             return jax.lax.psum(c, ak)
 
         return jax.shard_map(
             body, mesh=mesh,
-            in_specs=(P(ai, ak), P(ak, ai), P(ak, None), P(ak)),
+            in_specs=(P(ai, ak), P(ak, None), P(ak)),
             out_specs=P(ai, None), check_vma=False,
-        )(sg.zq_n, sg.zq_t, b, sg.freq)
+        )(sg.zq_n, b, sg.freq)
 
-    def body_t(zq_t_l, zq_n_l, b_l, f_l):
-        c = _local_mm(zq_t_l, zq_n_l, b_l, interpret)
+    def body_t(zq_t_l, b_l, f_l):
+        c = packed_matmul(zq_t_l, b_l)
         c = jax.lax.psum(c, ai)
         if center:
             colsum = jax.lax.psum(jnp.sum(b_l.astype(c.dtype), axis=0), ai)
@@ -200,29 +198,26 @@ def sharded_dgemm_2d(
 
     return jax.shard_map(
         body_t, mesh=mesh,
-        in_specs=(P(ak, ai), P(ai, ak), P(ai, None), P(ak)),
+        in_specs=(P(ak, ai), P(ai, None), P(ak)),
         out_specs=P(ak, None), check_vma=False,
-    )(sg.zq_t, sg.zq_n, b, sg.freq)
+    )(sg.zq_t, b, sg.freq)
 
 
 def sharded_grm_2d(
     sg: ShardedGeno2D,
     scale: bool = True,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """GRM over the 2D mesh: ring all_gather of row blocks along "i", one
     rectangular int8 crossproduct per device, psum over "k".  Returns the
     GRM row-sharded P("i") with shape [di*ipd, di*ipd] (zero-padded)."""
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ai, ak = sg.axes
     n = sg.indiv
     if 4 * sg.snps >= 2 ** 31:
         # per-shard rect crossprods are exact int32, but the psum over the
         # "k" axis can wrap when the TOTAL SNP count exceeds the limit the
-        # single-chip path enforces (ops/grm.py) — raise, don't wrap
+        # single-card path enforces (ops/grm.py) — raise, don't wrap
         raise ValueError(
             f"{sg.snps} total SNPs could overflow the exact int32 GRM "
             "accumulator across the psum (limit ~536M); chunk the SNP "
@@ -230,7 +225,7 @@ def sharded_grm_2d(
 
     def body(zq_n_l):
         z_all = jax.lax.all_gather(zq_n_l, ai, axis=0, tiled=True)
-        m = packed_crossprod_rect(zq_n_l, z_all, interpret=interpret)
+        m = packed_crossprod_rect(zq_n_l, z_all)
         return jax.lax.psum(m, ak)
 
     m = jax.shard_map(
@@ -242,8 +237,8 @@ def sharded_grm_2d(
     # Schlather finish on the padded row-sharded layout (padded rows/cols of
     # the raw crossproduct are exactly zero)
     mask = (jnp.arange(m.shape[1]) < n).astype(m.dtype)
-    colsum = m @ mask
-    total_vec = mask @ m
+    colsum = jnp.dot(m, mask, precision=jax.lax.Precision.HIGHEST)
+    total_vec = jnp.dot(mask, m, precision=jax.lax.Precision.HIGHEST)
     total = jnp.sum(total_vec * mask)
     m = m - total_vec[None, :] / n - colsum[:, None] / n + total / (n * n)
     if scale:
@@ -276,15 +271,12 @@ def sharded_grm_diag_2d(
     sg: ShardedGeno2D,
     center: bool = True,
     mesh: Optional[Mesh] = None,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """diag(Z_c Z_cᵀ) over the 2D mesh, exactly — row-sharded P("i") like
     every other CG vector.  Σ z² comes from per-block packed-word stats
     (psum over "k"); Σ f z is one 'n' dgemm with the sharded frequency
     column; Σ f² is a replicated scalar."""
     mesh = mesh or _mesh_of(sg)
-    if interpret is None:
-        interpret = on_cpu()
     ai, ak = sg.axes
 
     def body(zq_local):
@@ -299,7 +291,7 @@ def sharded_grm_diag_2d(
     if not center:
         return zsq
     fz = sharded_dgemm_2d(sg, sg.freq[:, None], trans="n", center=False,
-                          mesh=mesh, interpret=interpret)[:, 0]
+                          mesh=mesh)[:, 0]
     f = sg.freq.astype(jnp.float32)
     return zsq - 4.0 * fz + 4.0 * jnp.sum(f * f)
 
@@ -325,27 +317,25 @@ def sharded_cg_solve_2d(
     squeeze = b.ndim == 1
     bp = pad_indiv_vec(sg, b if not squeeze else b[:, None], mesh)
     res = _cg2d_jit(sg, bp, jnp.float32(lam), center, tol, maxiter, mesh,
-                    on_cpu(), precondition)
+                    precondition)
     x = res.x[:, 0] if squeeze else res.x
     return CGResult(x, res.iterations, res.residual_norm)
 
 
 @functools.partial(jax.jit, static_argnames=("center", "tol",
-                                             "maxiter", "mesh", "interpret",
+                                             "maxiter", "mesh",
                                              "precondition"))
-def _cg2d_jit(sg, bp, lam, center, tol, maxiter, mesh, interpret,
+def _cg2d_jit(sg, bp, lam, center, tol, maxiter, mesh,
               precondition=False) -> CGResult:
     # lam is TRACED (see _cg_jit: REML lambda sweeps must not recompile)
     def op(v):
-        zv = sharded_dgemm_2d(sg, v, trans="t", center=center, mesh=mesh,
-                              interpret=interpret)
+        zv = sharded_dgemm_2d(sg, v, trans="t", center=center, mesh=mesh)
         # centering subtracts a row-constant 2·fᵀB from EVERY 'n'-output row
         # including the padding; mask the padded rows so CG state stays
         # exactly zero there (only real rows carry the solve).
         snpmask = (jnp.arange(zv.shape[0]) < sg.snps).astype(zv.dtype)
         zv = zv * snpmask[:, None]
-        gv = sharded_dgemm_2d(sg, zv, trans="n", center=center, mesh=mesh,
-                              interpret=interpret)
+        gv = sharded_dgemm_2d(sg, zv, trans="n", center=center, mesh=mesh)
         rowmask = (jnp.arange(v.shape[0]) < sg.indiv).astype(v.dtype)
         gv = gv * rowmask[:, None]
         return gv + lam * v * rowmask[:, None]
@@ -354,8 +344,7 @@ def _cg2d_jit(sg, bp, lam, center, tol, maxiter, mesh, interpret,
     if precondition:
         from ..solve.cg import jacobi_minv
 
-        minv = jacobi_minv(sharded_grm_diag_2d(sg, center=center, mesh=mesh,
-                                               interpret=interpret) + lam)
+        minv = jacobi_minv(sharded_grm_diag_2d(sg, center=center, mesh=mesh) + lam)
     return cg(op, bp, tol=tol, maxiter=maxiter, minv=minv)
 
 

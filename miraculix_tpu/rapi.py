@@ -2,7 +2,7 @@
 (src/miraculix/zzzR.c:84-131) as named Python functions.
 
 Each function documents which reference entry it mirrors and routes to the
-TPU-native implementation.  (scan/sumscan/windower are legacy CRAN-era
+implementation here.  (scan/sumscan/windower are legacy CRAN-era
 statistics absent from the reference snapshot itself — SURVEY.md §2.2 —
 and are intentionally out of scope.)
 """
@@ -206,7 +206,7 @@ def exists_coding(coding: Coding) -> bool:
 
 def exists_variant(variant: int) -> bool:
     """``exists_variant`` (options.cc:78-120): reference variants select
-    SIMD widths; on TPU every tile preset exists, so any non-negative
+    SIMD widths; here one kernel serves every width, so any non-negative
     variant id is valid."""
     return variant >= 0
 
@@ -223,10 +223,9 @@ def exists_allele_freq(coding: Coding) -> bool:
 def exists_tiling(rows: int, preferred: int = 512, minimum: int = 8) -> bool:
     """``existsTiling`` analogue: can the kernel tile this axis?
     (reference gates coding x variant tiling combos, options.cc)."""
-    from .ops.common import pick_tile
-
-    try:
-        pick_tile(rows, preferred, minimum)
-        return True
-    except ValueError:
-        return False
+    t = preferred
+    while t >= minimum:   # a power-of-two tile >= minimum dividing rows
+        if rows % t == 0:
+            return True
+        t //= 2
+    return False

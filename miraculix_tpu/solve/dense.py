@@ -1,13 +1,13 @@
 """Dense positive-definite solvers: Cholesky solve, log-determinant,
 relationship-matrix solve, inverse helpers.
 
-TPU-native equivalents of the reference's cuSOLVER path
+Equivalents of the reference's cuSOLVER path
 (``potrs_solve_gpu``: Xpotrf/Xpotrs + trace_kernel logdet,
 src/cuda/solve_cuda.cu:70-279,884-909) and of the vendored
 RandomFieldsUtils dense suite (``SolvePosDef``/``doPosDefIntern``,
 ``chol2inv``, ``xCinvYdet``, src/miraculix/solve_rfu.cc:102-2223).
-XLA's blocked Cholesky runs on the MXU; float64 is supported (emulated on
-TPU) when jax_enable_x64 is on, matching the reference's double semantics.
+XLA's Cholesky (cuSOLVER on the GPU); float64 is supported when
+jax_enable_x64 is on, matching the reference's double semantics.
 """
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
+
+# f32 products at f32 grade: a GPU would take them in TF32 (~1e-3) at the
+# default precision
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class DenseSolveResult(NamedTuple):
@@ -68,7 +72,7 @@ def x_cinv_y_logdet(
     chol = jnp.linalg.cholesky(c)
     ciy = jsl.cho_solve((chol, True), y)
     logdet = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol)))
-    return x.T @ ciy, logdet
+    return jnp.matmul(x.T, ciy, precision=_HIGHEST), logdet
 
 
 class RelMatResult(NamedTuple):
@@ -93,7 +97,7 @@ def solve_relmat(
     x = dense_solve(am, v).x
     yhat = None
     if compute_yhat:
-        yhat = a @ x
+        yhat = jnp.matmul(a, x, precision=_HIGHEST)
         if beta is not None:
             yhat = yhat + jnp.asarray(beta, yhat.dtype)
     return RelMatResult(x, yhat)
@@ -104,7 +108,7 @@ def sqrt_posdef(a: jax.Array) -> jax.Array:
     (reference RFU ``SqrtPosDefFree``, solve_rfu.cc)."""
     w, q = jnp.linalg.eigh(a)
     w = jnp.maximum(w, 0.0)
-    return (q * jnp.sqrt(w)[None, :]) @ q.T
+    return jnp.matmul(q * jnp.sqrt(w)[None, :], q.T, precision=_HIGHEST)
 
 
 def sqrt_rhs(a: jax.Array, b: jax.Array) -> jax.Array:
@@ -112,7 +116,9 @@ def sqrt_rhs(a: jax.Array, b: jax.Array) -> jax.Array:
     (reference RFU ``sqrtRHS``, solve_rfu.cc)."""
     w, q = jnp.linalg.eigh(a)
     w = jnp.maximum(w, 0.0)
-    return q @ (jnp.sqrt(w)[:, None] * (q.T @ b))
+    return jnp.matmul(q, jnp.sqrt(w)[:, None]
+                      * jnp.matmul(q.T, b, precision=_HIGHEST),
+                      precision=_HIGHEST)
 
 
 def solve_posdef(
@@ -144,7 +150,8 @@ def solve_posdef(
     def _eigh():
         w, q = jnp.linalg.eigh(a)
         w_inv = jnp.where(w > eigen_floor, 1.0 / jnp.maximum(w, 1e-300), 0.0)
-        x = q @ (w_inv[:, None] * (q.T @ bb.astype(a.dtype)))
+        x = jnp.matmul(q, w_inv[:, None] * jnp.matmul(
+            q.T, bb.astype(a.dtype), precision=_HIGHEST), precision=_HIGHEST)
         ld = jnp.sum(jnp.where(w > eigen_floor, jnp.log(jnp.maximum(w, 1e-300)),
                                0.0)) if calc_logdet else None
         return x, ld

@@ -4,7 +4,7 @@ Parity with the reference's observability (SURVEY.md §5): the PRINT_LEVEL
 env-gated logging (src/cuda/cuda_utils.cu:44-63), the STARTCLOCK/CLOCK
 per-phase wall timers (src/miraculix/Vector.matrix.D.cc:51,89-221), and the
 compile banner with build info (cuda_utils.cu:65-82).  Adds a
-jax.profiler trace hook — the TPU-native replacement for clock() deltas.
+jax.profiler trace hook — the device-side replacement for clock() deltas.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Dispatch-level tests for the benchmark suite CLI.
 
-The bench functions themselves need the real TPU; these tests stub them
+The bench functions themselves need a GPU; these tests stub them
 and check main()'s suite/panel routing — the layer that broke when a
 grm-only panel name (ref_many_snps) crashed the dgemm branch.
 """

@@ -1,4 +1,4 @@
-"""Golden-buffer byte-layout fidelity tests (VERDICT r1 item 3).
+"""Golden-buffer byte-layout fidelity tests.
 
 Each expected buffer is HAND-CONSTRUCTED here with independent arithmetic
 straight from the reference layout definitions — not by calling the codecs

@@ -230,7 +230,7 @@ def test_dgemm_f64_tier_under_x64():
 
 def test_packed_matmul_exact_digit_path(rng):
     """The integer-digit (Ozaki-style) exact path: result matches a pure
-    float64 oracle to ~1e-15 — true double precision from int8 MXU passes."""
+    float64 oracle to ~1e-15 — true double precision from exact int8 passes."""
     from miraculix_tpu.io import codec
     from miraculix_tpu.ops.dgemm import packed_matmul_exact
 
@@ -288,10 +288,9 @@ print("ok")
 
 def test_dgemm_f64_tier_without_x64():
     """precision='f64' must hold its f64 grade with jax_enable_x64 OFF —
-    the default on real-TPU sessions.  Regression: jnp.asarray of the exact
-    host-f64 result used to quantize the tier to f32 (~5e-8, measured on
-    v5e); the fix keeps the result and the whole centering/missing epilogue
-    in host numpy float64."""
+    JAX's default.  Regression: jnp.asarray of the exact host-f64 result
+    used to quantize the tier to f32 (~5e-8); the fix keeps the result and
+    the whole centering/missing epilogue in host numpy float64."""
     import subprocess
     import sys
 
@@ -339,30 +338,3 @@ def test_dgemm_rejects_unknown_precision():
     b = np.zeros((32, 2), np.float32)
     with pytest.raises(ValueError, match="precision"):
         dgemm(gm, jnp.asarray(b), trans="n", precision="exact")
-
-
-def test_dgemm_fused_centering_large_k(rng):
-    """The in-kernel fused centering reduction only engages at >= 65536
-    contraction SNPs (r5 gate) — exercise that path explicitly against
-    the oracle, both orientations x rowmeans, on a skinny RHS."""
-    n_indiv, snps = 32, 65536
-    g = bed.simulate_genotypes(n_indiv, snps, seed=3)
-    gm = mx.from_dense(g)
-    f = np.asarray(gm.freq, np.float64)
-    b_n = rng.standard_normal((snps, 4)).astype(np.float32)
-    got = np.asarray(mx.dgemm(gm, b_n, trans="n", center=True))
-    want = ref_impl.dgemm_oracle(g, b_n.astype(np.float64), f, trans="n",
-                                 center=True)
-    assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-4
-    # 't' with >= 64K INDIVIDUALS would be a 64K-indiv panel (slow on the
-    # interpret backend); the 'n' case covers the cv kernel + colsum mode
-    got_cm = np.asarray(mx.dgemm(gm, b_n, trans="n", center="colmeans"))
-    want_cm = ref_impl.dgemm_oracle(
-        g, b_n.astype(np.float64), f, trans="n", center=True,
-        pseudo_freq=np.asarray(gm.pseudo_freq, np.float64))
-    # colmeans oracle: Z - 2 pf 1^T
-    zf = g.astype(np.float64)
-    pf = np.asarray(gm.pseudo_freq, np.float64)[:n_indiv]
-    want_cm = (zf - 2.0 * pf[:, None]) @ b_n.astype(np.float64)
-    assert np.abs(got_cm - want_cm).max() / max(
-        1.0, np.abs(want_cm).max()) < 1e-4

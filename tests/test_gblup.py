@@ -478,6 +478,29 @@ def test_gblup_from_grm_matches_panel_gblup(panel):
     assert np.abs(got.g_hat - ref.g_hat).max() / denom < 5e-3
 
 
+@pytest.mark.gpu
+def test_gblup_from_grm_on_card_f32_grade(gpu):
+    """The dense-GRM CG compiled for the card against a float64 direct
+    solve.  Its matvec is an f32 GEMM: at f32 grade the estimates land
+    ~3e-7 from float64 (CPU, same system); with the GRM rounded to TF32's
+    10-bit mantissa they land ~2e-4 away.  The 2e-5 limit passes the first
+    and fails the second."""
+    n = 2000
+    geno = bed.simulate_genotypes(n, 8000, seed=61).astype(np.float64)
+    zc = geno - geno.mean(0)
+    f = geno.mean(0) / 2
+    g = zc @ zc.T / (2 * np.sum(f * (1 - f)))
+    y = (np.random.default_rng(3).standard_normal(n)
+         + 0.1 * zc[:, :50].sum(1))
+    v = g + np.eye(n)                               # h2 = 0.5: lam = 1
+    x = np.ones((n, 1))
+    beta = np.linalg.solve(x.T @ np.linalg.solve(v, x),
+                           x.T @ np.linalg.solve(v, y))
+    g_hat = g @ np.linalg.solve(v, y - x @ beta)
+    got = gblup.gblup_from_grm(g, y, h2=0.5, tol=1e-7, maxiter=2000)
+    assert np.abs(got.g_hat - g_hat).max() / np.abs(g_hat).max() < 2e-5
+
+
 def test_snp_effects_containers_match(panel):
     """Marker backsolve is container-independent: streamed and 1D-sharded
     panels reproduce the single-chip alpha."""
@@ -923,7 +946,7 @@ def test_cli_reml_multi(tmp_path, capsys):
 
 def test_multi_v_solver_matches_dense_kron():
     """The jitted traced-Sg/Se inner CG of estimate_multi_reml
-    (_multi_v_solver, VERDICT r3 Weak #6 fix) vs a dense f64 Kronecker
+    (_multi_v_solver) vs a dense f64 Kronecker
     solve of V = Sg ⊗ G_s + Se ⊗ I (vec order: individual-major,
     trait-minor — V = kron(G_s, Sg) + kron(I, Se))."""
     n, snps, t, m = 96, 500, 3, 5
@@ -1014,7 +1037,7 @@ def test_cli_reml_bivar_rejects_two_column_file(tmp_path, capsys):
 
 def test_multi_reml_streamed_device_cg_matches_host(tmp_path):
     """estimate_multi_reml on a StreamedGeno with the device-vector
-    streamed inner CG (_multi_v_solver_streamed, VERDICT r4 Next #7) must
+    streamed inner CG (_multi_v_solver_streamed) must
     reproduce the host-f64-loop estimates on the same streamed panel."""
     n, snps = 120, 700
     geno = bed.simulate_genotypes(n, snps, seed=41)

@@ -95,49 +95,31 @@ def test_ld_blocked_matches_ld(rng):
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
-def test_crossprod_rejects_sub128_row_tile(rng):
-    """Row tiles below the Mosaic 128-lane floor must fail with the clear
-    pick_tile message, not a Mosaic lowering error (ops/common.pick_tile)."""
-    import pytest
-    from miraculix_tpu.ops.grm import packed_crossprod
-
-    g = (rng.random((256, 512)) * 3).astype(np.int8)
-    gm = mx.from_dense(g)
-    with pytest.raises(ValueError, match="below the minimum 128"):
-        packed_crossprod(gm.zq_n, tile_i=64, interpret=True)
-
-
 def test_crossprod_autopads_odd_row_counts(rng):
-    """Rows whose packing only admits small (or no) power-of-two tiles are
-    zero-padded inside packed_crossprod — exactly, since zero rows give zero
-    products (the 21k-individual reference panels hit this: 21248 rows only
-    admit 256-tiles, padded 21504 runs 512-tiles at +23% throughput)."""
+    """Packings with row counts that are no power of two (3968 = 128*31,
+    384, 192 — the 21k-individual reference panels pad to 21,248 rows) give
+    the exact integer crossproduct."""
     from miraculix_tpu.io import codec
     from miraculix_tpu.ops.grm import packed_crossprod
 
-    # 3968 rows = 128*31: best divisor 128 < the 512 default and padding to
-    # 4096 costs <= 10% extra work -> pads, runs 512-tiles, slices back
     g = (rng.random((3968, 512)) * 3).astype(np.int8)
     zq = codec.pack_planar16(g, row_mult=128)
     assert zq.shape[0] == 3968
-    m = np.asarray(packed_crossprod(zq, interpret=True))
+    m = np.asarray(packed_crossprod(zq))
     want = g.astype(np.int64) @ g.astype(np.int64).T
     assert m.shape == (3968, 3968)
     np.testing.assert_array_equal(m, want)
 
-    # 384 rows: padding to 512 would cost +78% work -> stays on 128-tiles
     g1 = (rng.random((384, 512)) * 3).astype(np.int8)
     zq1 = codec.pack_planar16(g1, row_mult=128)
-    m1 = np.asarray(packed_crossprod(zq1, interpret=True))
+    m1 = np.asarray(packed_crossprod(zq1))
     np.testing.assert_array_equal(
         m1, g1.astype(np.int64) @ g1.astype(np.int64).T)
 
-    # 192 rows: no pow2 divisor >= 128 at all -> previously an error, now
-    # padded to the cheapest valid multiple of 128
     g2 = (rng.random((192, 512)) * 3).astype(np.int8)
     zq2 = codec.pack_planar16(g2, row_mult=64)
     assert zq2.shape[0] == 192
-    m2 = np.asarray(packed_crossprod(zq2, interpret=True))
+    m2 = np.asarray(packed_crossprod(zq2))
     np.testing.assert_array_equal(
         m2, g2.astype(np.int64) @ g2.astype(np.int64).T)
 
@@ -319,9 +301,11 @@ def test_ld_score_respects_chromosomes():
         np.testing.assert_allclose(got[90:], half, rtol=2e-4, atol=2e-4)
 
 
-def test_packed_crossprod_weighted_oracle():
+def test_packed_crossprod_weighted_oracle(blocks):
     """Weighted crossproduct Z diag(w) Zᵀ == dense float64, to f32 grade
-    (three exact bf16 digits of w·z; only f32 accumulation rounds)."""
+    (f32 products at HIGHEST precision; only f32 rounding), in one K block
+    and across K blocks."""
+    from miraculix_tpu.ops import grm as grm_ops
     from miraculix_tpu.ops.grm import packed_crossprod_weighted
 
     g = bed.simulate_genotypes(150, 700, seed=31)
@@ -329,10 +313,10 @@ def test_packed_crossprod_weighted_oracle():
     rng = np.random.default_rng(0)
     w = rng.uniform(0.1, 3.0, 700)
     want = (g.astype(np.float64) * w[None, :]) @ g.astype(np.float64).T
-    for triangle in (True, False):
+    for block_words in (16, 2048):
+        blocks(grm_ops, CROSS_BLOCK_WORDS=block_words)
         got = np.asarray(packed_crossprod_weighted(
-            gm.zq_n, jnp.asarray(w, jnp.float32), tile_m=128, tile_kw=128,
-            interpret=True, triangle=triangle), np.float64)[:150, :150]
+            gm.zq_n, jnp.asarray(w, jnp.float32)), np.float64)[:150, :150]
         assert np.abs(got - want).max() / np.abs(want).max() < 5e-6
 
 
@@ -345,15 +329,13 @@ def test_pairwise_nonmissing_exact():
     gm = mx.from_dense(g, keep_missing_info=True)
     called = (g != 3)
     want = called.astype(np.int64) @ called.astype(np.int64).T
-    got = np.asarray(pairwise_nonmissing(gm, tile_m=128, tile_kw=128),
-                     np.int64)
+    got = np.asarray(pairwise_nonmissing(gm), np.int64)
     assert np.array_equal(got, want)
     use = np.zeros(500, bool)
     use[::3] = True
     want_u = called[:, use].astype(np.int64) @ called[:, use].astype(
         np.int64).T
-    got_u = np.asarray(pairwise_nonmissing(gm, use=use, tile_m=128,
-                                           tile_kw=128), np.int64)
+    got_u = np.asarray(pairwise_nonmissing(gm, use=use), np.int64)
     assert np.array_equal(got_u, want_u)
 
 
@@ -397,7 +379,7 @@ def test_grm_yang_missing_exact_global_m():
 def test_grm_yang_pair_denominator_gcta_interop():
     """grm_yang(pair_denominator=True) == gcta --make-grm's published
     estimator (each pair / its own co-called SNP count) on a 5%-missing
-    panel, elementwise (VERDICT r3 Missing #2)."""
+    panel, elementwise."""
     from miraculix_tpu.ops.grm import grm_yang
 
     g = bed.simulate_genotypes(110, 600, seed=36, missing_rate=0.05)
@@ -492,7 +474,7 @@ def test_ld_prune_native_matches_python():
 
 def test_ld_windowed_missing_correction_matches_full_ld():
     """Banded r with correct_missing == the corrected full ld()'s
-    superdiagonals on a 5%-missing panel (VERDICT r3 Missing #3);
+    superdiagonals on a 5%-missing panel;
     uncorrected banded == uncorrected full."""
     g = bed.simulate_genotypes(120, 900, seed=51, missing_rate=0.05)
     gm = mx.from_dense(g, keep_missing_info=True)
@@ -514,7 +496,7 @@ def test_ld_windowed_missing_correction_matches_full_ld():
 
 def test_ld_score_missing_correction_shifts_scores():
     """LD scores on a missing panel change under the exact correction and
-    match the corrected dense-oracle banded sum (VERDICT r3 Missing #3)."""
+    match the corrected dense-oracle banded sum."""
     from miraculix_tpu import ld_score
 
     n, snps, w = 130, 400, 32
@@ -540,22 +522,3 @@ def test_ld_score_missing_correction_shifts_scores():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     got0 = ld_score(gm, window=w, adjusted=True, correct_missing=False)
     assert np.abs(got0 - want).max() > np.abs(got - want).max() * 5
-
-
-def test_weighted_crossprod_digit_split_is_compiler_proof():
-    """The weighted kernel's 3-digit bf16 split must hold f32 grade
-    (~1e-7, not the ~3e-4 of a single digit) on the INTERPRET path too:
-    the old cast-based split (wz - f32(bf16(wz))) was folded to zero by
-    XLA's excess-precision pass outside Mosaic; the integer-mask split is
-    un-foldable (review finding)."""
-    from miraculix_tpu.ops.grm import grm_yang
-
-    g = bed.simulate_genotypes(48, 384, seed=21)
-    gm = mx.from_dense(g)
-    f = np.asarray(gm.freq, np.float64)
-    zc = g.astype(np.float64) - 2 * f
-    w = 1.0 / np.maximum(2 * f * (1 - f), 1e-12)
-    want = (zc * w) @ zc.T / 384
-    got = np.asarray(grm_yang(gm), np.float64)
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 2e-6, rel

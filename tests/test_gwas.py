@@ -283,8 +283,7 @@ def test_cli_gwas_writes_variant_ids(tmp_path, capsys):
 
 def test_gwas_mixed_streamed_matches_materialized(tmp_path):
     """gwas_mixed on a StreamedGeno (host-driven chunked CG) == the
-    materialized-panel scan (VERDICT r3 Weak #4: the guard was stricter
-    than the machinery beneath it)."""
+    materialized-panel scan."""
     import miraculix_tpu as mx
     from miraculix_tpu import gwas_mixed
     from miraculix_tpu.io import bed as bedio
@@ -387,7 +386,7 @@ def test_gwas_mixed_loco_rejects_streamed(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Sharded (multi-chip) GWAS: VERDICT r4 Next #2 — the scan must run on the
+# Sharded (multi-card) GWAS: the scan must run on the
 # distributed container with device-count-independent answers.
 # ---------------------------------------------------------------------------
 

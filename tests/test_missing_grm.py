@@ -1,4 +1,4 @@
-"""Exact GRM/LD missing-genotype corrections (VERDICT r1 item 6).
+"""Exact GRM/LD missing-genotype corrections.
 
 Oracle: float64 mean-imputed centered matrices — a missing entry
 contributes exactly 0 to Zc (reference Missings semantics,

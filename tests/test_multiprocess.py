@@ -1,4 +1,4 @@
-"""REAL multi-process distributed execution (VERDICT r3 Missing #1).
+"""REAL multi-process distributed execution.
 
 Spawns 2 OS processes that form a jax.distributed CPU cluster (Gloo
 collectives, 4 virtual devices each) and runs the full checklist in
@@ -25,7 +25,7 @@ def test_four_process_uneven_panel():
     """4 processes x 1 device each on an 8300-SNP panel: 8300 divides
     neither the device count nor the 2048 SNP-padding quantum, so some
     devices own partial ranges and one owns an empty range — the
-    index-math edge cases of multi-host ingestion (VERDICT r4 Next #8)."""
+    index-math edge cases of multi-host ingestion."""
     from miraculix_tpu.parallel import mp_check
 
     outs = mp_check.run_cluster(num_processes=4, timeout=1100,

@@ -1,6 +1,5 @@
 """Packed-panel cache: repeated R-API / direct-PLINK calls must reuse the
-device-resident pack (VERDICT r1 item 8; reference motivation
-plink256.cc:54-61)."""
+device-resident pack."""
 import numpy as np
 import pytest
 

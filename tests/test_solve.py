@@ -75,6 +75,20 @@ def test_solve_relmat(rng):
     np.testing.assert_allclose(np.asarray(res.yhat), a @ x + beta, atol=1e-8)
 
 
+@pytest.mark.gpu
+def test_solve_relmat_on_card_f32_grade(gpu, rng):
+    """yhat = A x as the card computes it in f32: within 1e-5 of float64
+    (f32 grade reads ~6e-7 on the CPU; TF32 operands read ~5e-4)."""
+    a = _spd(rng, 1500) / 1500
+    v = rng.standard_normal(1500)
+    res = solve.solve_relmat(jnp.asarray(a, jnp.float32), 1.0,
+                             jnp.asarray(v, jnp.float32))
+    x = np.asarray(res.x, np.float64)
+    want = a.astype(np.float32).astype(np.float64) @ x
+    assert np.abs(np.asarray(res.yhat, np.float64) - want).max() \
+        / np.abs(want).max() < 1e-5
+
+
 def test_sqrt_posdef(rng):
     a = _spd(rng, 15)
     s = np.asarray(solve.sqrt_posdef(a))

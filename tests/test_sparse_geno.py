@@ -1,5 +1,5 @@
-"""Segment-sum sparse x genotype path (VERDICT r1 item 4): O(nnz) gather
-path must match the densified MXU path and the numpy oracle, and serve
+"""Segment-sum sparse x genotype path: O(nnz) gather
+path must match the densified packed-matmul path and the numpy oracle, and serve
 pedigree-incidence n_idx scales the dense path cannot."""
 import numpy as np
 import pytest

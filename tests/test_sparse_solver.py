@@ -1,4 +1,4 @@
-"""Blocked O(nnz) sparse triangular solver (VERDICT r1 item 1).
+"""Blocked O(nnz) sparse triangular solver.
 
 Oracle = dense numpy solves in float64; shapes/scales mirror the reference's
 solver tests (tests/solve/test.jl: simulated diagonally-dominant factors,
@@ -75,7 +75,7 @@ def test_matvec_matches_dense(rng):
 
 
 def test_refinement_tightens_f32(rng):
-    """On an f32 solver (the TPU configuration) one refinement sweep must
+    """On an f32 solver (the GPU configuration) one refinement sweep must
     reduce the residual."""
     import jax.numpy as jnp
 
@@ -135,7 +135,7 @@ def test_free_releases():
 
 @pytest.mark.parametrize("bs", [96, 128])   # non-power-of-two exercises pad
 def test_device_analysis_matches_host(rng, bs):
-    """The device-side f32 analysis (MXU block-doubling inversion of the
+    """The device-side f32 analysis (matmul block-doubling inversion of the
     diagonal blocks) must agree with the host f64 analysis to f32 grade,
     and both with the scipy oracle."""
     import scipy.sparse as sp
@@ -161,8 +161,7 @@ def test_device_analysis_matches_host(rng, bs):
 def test_solve_f64_refinement_reaches_1e12():
     """Mixed-precision refinement (f32 device substitution + exact host
     f64 residuals) drives the n=1e5 LLᵀ relative residual to <= 1e-10
-    where the plain f32 solve floors ~1e-5 (VERDICT r3 Missing #4;
-    reference f64 parity: solve_cuda.cu:281-882)."""
+    where the plain f32 solve floors ~1e-5."""
     import jax.numpy as jnp
 
     from miraculix_tpu.solve.sparse import (SparseTriangularSolver,

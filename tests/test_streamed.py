@@ -1,4 +1,4 @@
-"""Out-of-core streamed panel (VERDICT r1 item 5): chunked results must
+"""Out-of-core streamed panel: chunked results must
 equal the in-memory paths exactly (same kernels, same centering math)."""
 import numpy as np
 import pytest
